@@ -3,21 +3,39 @@
     python3 chip_smoke.py [--seed S] [--budget committed|planned] [--json PATH]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU.  It builds
-the CUDA kernels from ``src/repro_torch/csrc`` and then:
+the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
+started together) and then:
 
-  1. kernel phase: each kernel of the path (B1 tile_matvec, B2
-     tile_tangent, B4 tile_matrix) at the shapes the workflow gives it,
-     held against its plain PyTorch version on the same inputs in float64,
-     and timed (CUDA events, median of repeats) beside the plain version
-     and the least time the card could take (the roofline bound below);
-  2. workflow phase: the paper's workflow through the front door on one
-     year of hourly-scale irregular sampling (n = 8760): GP.bind -> fit ->
-     log_evidence -> compare (ln B of k2 vs k1) -> predict at n* = 512 with
-     variance, with every kernel's launch count read around it, and for
-     each stage how its CG solves ended (tolerance or cg_max_iter) and
-     the eigenvalues of every Laplace Hessian it formed;
-  3. a small-input check: ln P_max and its gradient on the card against
-     the port's CPU path (plain PyTorch) with the same probes.
+  1. kernel phase: each kernel of the two paths (B1 tile_matvec, B2
+     tile_tangent, B4 tile_matrix; B5 ski_gram, B6 ski_tangent) at the
+     shapes its workflow gives it, held against its plain PyTorch version
+     on the same inputs (float64, and one float32 case of B5 and B6), and
+     timed (CUDA events, median of repeats) beside the plain version and
+     the least time the card could take (the roofline bound below); B5
+     is also timed against its plain version at n ~ 600, 2000 and 7080
+     (where the card's own crossover lies);
+  2. irregular phase: the paper's workflow through the front door on one
+     year of hourly-scale irregular sampling (n = 8760, the tile
+     operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
+     variance;
+  3. SKI phase: a gappy tide-gauge record (two years of the two-hour
+     cadence, n_full = 7869, 10% of the samples dropped, n ~ 7080: a near
+     grid, the SKI operator with B5 and B6 and the circulant
+     preconditioner): GP.bind(k2) -> fit -> log_evidence -> compare (ln B
+     of k2 vs k1, batch="off") -> predict at 512 points with variance and
+     the SKI-interpolated cross covariance; then, at the fitted peak, the
+     phase's answers against the exact GP (a dense Cholesky of the same
+     K, which the one-hot W makes exact): a cut CG solve whose K-norm
+     error exceeds the zero start's fails the run, and the errors of
+     ln P, the mean and the variance are reported;
+     in phases 2 and 3 the launch counts are set to 0 just before and read
+     just after, and each stage prints how its CG solves ended (tolerance
+     or cg_max_iter) and the eigenvalues of every Laplace Hessian it
+     formed;
+  4. small-input checks: ln P_max and its gradient on the card against
+     the port's CPU path (plain PyTorch) with the same probes, on an
+     irregular input, a gappy record (SKI) and its un-dropped grid
+     (Toeplitz).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
@@ -34,9 +52,21 @@ B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V; B2
 counts the value and its closed-form gradient over the kind's natural
 slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles with V,
 since the m directions can be applied afterwards to the (NS, n1, b)
-result at a cost independent of n2.
+result at a cost independent of n2.  B5 and B6 move v and the output
+once, the L/2 + 1 distinct values of each spectrum (real and even), the
+n s stencil weights of the sampled points and their n cell indices, and
+do the FFTs (5 L log2 L per complex column and transform: one forward and
+one inverse per pair of columns for B5, one forward and m inverse for
+B6), the spectrum multiply and the two stencils (2 s per entry each), at
+the fp64 (34 TFLOP/s) or fp32 (67 TFLOP/s) rate outside the tensor
+cores.
 
-``--budget planned`` runs the workflow phase with the budget first planned
+The SKI cell follows the repository's ``woods_hole_like`` recipe (five
+tidal constituents with their periods and amplitudes, random phases, a
+spring/neap envelope, noise 0.01, mean removed) and ``drop_random_hours``,
+in numpy from ``--seed``.
+
+``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
 committed one; on this data it is expected to end with a nan evidence,
 and the phase's line shows why (Hessian eigenvalues, CG stops).
@@ -64,16 +94,20 @@ from repro_torch import random as rnd  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import iterative as it  # noqa: E402
 from repro_torch.core import laplace  # noqa: E402
+from repro_torch.core import predict  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import kernel_matvec as km  # noqa: E402
 from repro_torch.kernels import kernel_tile as kt  # noqa: E402
 from repro_torch.core.reparam import FlatBox  # noqa: E402
+from repro_torch.kernels import operators as opers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ski_fused as sf  # noqa: E402
 from repro_torch.kernels.ref import matrix_ref  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 FP64_PEAK = 34e12          # fp64 outside the tensor cores
 FP64_TC_PEAK = 67e12       # fp64 on the tensor cores
+FP32_PEAK = 67e12          # fp32 outside the tensor cores
 
 # operations per covariance entry (value), and for B2 the value plus the
 # closed-form gradient over the kind's natural slots
@@ -93,7 +127,10 @@ SIGMA_N = 0.1
 # steps from uniform starts in the data-dependent box.
 BUDGETS = {"committed": dict(max_iters=25, scan_points=64, tidal_boxes=True),
            "planned": dict(max_iters=5, scan_points=None, tidal_boxes=False)}
-TOL = {"tile_matvec": 1e-12, "tile_tangent": 1e-11, "tile_matrix": 1e-12}
+# max-abs error over max-abs against the plain version
+TOL = {"tile_matvec": 1e-12, "tile_tangent": 1e-11, "tile_matrix": 1e-12,
+       "ski_gram": 1e-12, "ski_tangent": 1e-12}
+TOL_F32 = 1e-5
 SOURCES = {
     "tile_matvec": ("src/repro_torch/csrc/tile_matvec.cu",
                     "src/repro/kernels/kernel_matvec.py:270"),
@@ -101,7 +138,27 @@ SOURCES = {
                      "src/repro/kernels/kernel_matvec.py:209"),
     "tile_matrix": ("src/repro_torch/csrc/tile_matrix.cu",
                     "src/repro/kernels/kernel_tile.py:29"),
+    "ski_gram": ("src/repro_torch/csrc/ski_gram.cu",
+                 "src/repro/kernels/ski_fused.py:667"),
+    "ski_tangent": ("src/repro_torch/csrc/ski_tangent.cu",
+                    "src/repro/kernels/ski_fused.py:712"),
 }
+TILE_KERNELS = ("tile_matvec", "tile_tangent", "tile_matrix")
+SKI_KERNELS = ("ski_gram", "ski_tangent")
+
+# the SKI cell: the woods_hole_like recipe on two years of the 2 h cadence
+LUNAR_MONTH_H = 27.321661 * 24.0
+CADENCE_H = 2.0
+TIDAL_MONTHS = 24
+DROP = 0.1
+TIDAL_SIGMA_N = 0.01
+CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
+                ("N2", 12.6583475, 0.24), ("K1", 23.9344721, 0.14),
+                ("O1", 25.8193417, 0.11))
+# points the SKI kernel cases run at (flat coordinates, inside the boxes)
+SKI_THETA = {"k1": [math.log(300.0), math.log(12.42), 0.0],
+             "k2": [math.log(300.0), math.log(12.42), 0.0, math.log(23.93),
+                    0.0]}
 # the k2 point the data is drawn from (flat coordinates, hours)
 TRUTH = [math.log(200.0), math.log(12.42), -0.19, math.log(24.0), -0.1]
 # points the kernel phase runs at
@@ -133,11 +190,31 @@ def errors(got, want):
     return err, err / float(want.abs().max())
 
 
-def bound(n_bytes: float, eval_ops: float, mma_flops: float):
+def bound(n_bytes: float, eval_ops: float, mma_flops: float,
+          peak: float = FP64_PEAK):
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = eval_ops / FP64_PEAK + mma_flops / FP64_TC_PEAK
+    t_ops = eval_ops / peak + mma_flops / FP64_TC_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops
                                        else "operations")
+
+
+def ski_bound(geom, b: int, m_dirs: int, dtype):
+    """Roofline bound (ms, what bounds it) of B5 (m_dirs = 0) or B6: the
+    bytes of v, the output, the distinct half of each real even spectrum,
+    the n s weights and the n cell indices (the kernels' (m, s) weight
+    table and m-long cell map are a layout, not part of the function)."""
+    n, L, s = geom.n, geom.L, len(geom.offs)
+    item = torch.finfo(dtype).bits // 8
+    outs = max(m_dirs, 1)
+    n_bytes = (item * (n * b + outs * n * b + n * s + outs * (L // 2 + 1))
+               + 4 * n)
+    cols = (b + 1) // 2
+    fft = 5.0 * L * math.log2(L)
+    ops_ = (fft * cols * (1 + outs) + 2.0 * L * cols * outs
+            + 2.0 * s * n * b * (1 + outs) + (2.0 * n * b if not m_dirs
+                                              else 0.0))
+    peak = FP64_PEAK if dtype == torch.float64 else FP32_PEAK
+    return bound(n_bytes, ops_, 0.0, peak)
 
 
 def make_data(seed: int, dev):
@@ -156,6 +233,28 @@ def make_data(seed: int, dev):
     K.diagonal().add_(SIGMA_N ** 2)
     y = torch.linalg.cholesky(K) @ torch.tensor(z, device=dev)
     return x, y.cpu().numpy(), xstar
+
+
+def make_tidal_data(seed: int, months: int = TIDAL_MONTHS, drop=DROP):
+    """The woods_hole_like recipe with drop_random_hours, in numpy: five
+    tidal constituents with random phases, the spring/neap envelope,
+    noise 0.01, the mean removed; then each sample dropped with
+    probability ``drop``.  Returns (x, y, xstar) with 512 sorted test
+    points inside the record, and n_full."""
+    rng = np.random.default_rng(seed)
+    n_full = int(round(months * LUNAR_MONTH_H / CADENCE_H))
+    t = np.arange(n_full, dtype=np.float64) * CADENCE_H
+    y = np.zeros(n_full)
+    for _, period, amp in CONSTITUENTS:
+        y += amp * np.sin(2 * np.pi * t / period
+                          + rng.uniform() * 2 * np.pi)
+    y *= 1.0 + 0.25 * np.sin(2 * np.pi * t / (LUNAR_MONTH_H / 2))
+    y += TIDAL_SIGMA_N * rng.standard_normal(n_full)
+    y -= y.mean()
+    keep = rng.uniform(size=n_full) >= drop
+    x, y = t[keep], y[keep]
+    xstar = np.sort(rng.uniform(x[0], x[-1], N_STAR))
+    return x, y, xstar, n_full
 
 
 def tidal_boxes():
@@ -181,7 +280,7 @@ def tidal_boxes():
 # kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_phase(x, xstar, dev, rng):
+def kernel_phase(x, xstar, dev, rng, seed):
     cases = {name: [] for name in SOURCES}
     for kind in ("k1", "k2"):
         theta = torch.tensor(THETA[kind], dtype=torch.float64)
@@ -240,20 +339,103 @@ def kernel_phase(x, xstar, dev, rng):
             plain_ms=time_ms(lambda: kt.tile_matrix_plain(kind, p, x, xstar),
                              3),
             bound_ms=bms, bound_by=by))
+    crossover = ski_kernel_cases(cases, dev, rng, seed)
     for name, rows in cases.items():
         for row in rows:
             emit({"kernel_case": name, **row})
-            if not row["max_rel_err"] <= TOL[name]:
+            tol = TOL[name] if row.get("dtype", "float64") == "float64" \
+                else TOL_F32
+            if not row["max_rel_err"] <= tol:
                 raise AssertionError(
                     f"{name} disagrees with its plain version: {row}")
-    return cases
+    return cases, crossover
+
+
+def ski_kernel_cases(cases, dev, rng, seed):
+    """B5 at b = 1 (value CG), 8 (Lanczos), 9 (training CG) and 256 (the
+    predict variance chunk), B6 at m = 3 (k1) and 5 (k2) with b = 9, on
+    the SKI cell's geometry; one float32 case of each; then B5 against its
+    plain version at n ~ 600, 2000 and 7080."""
+    x, _, _, _ = make_tidal_data(seed)
+    xt = torch.tensor(x, device=dev)
+    for dtype, shapes in ((torch.float64, (1, 8, 9, 256)),
+                          (torch.float32, (9,))):
+        op = opers.select_operator("k2", xt, TIDAL_SIGMA_N, 1e-8)
+        geom = op.fused_geom
+        grid = opers.ToeplitzOperator("k2", op.grid)
+        theta = torch.tensor(SKI_THETA["k2"], dtype=torch.float64,
+                             device=dev)
+        lam = sf.spectrum(grid.first_column(theta), geom).to(dtype)
+        for b in shapes:
+            v = torch.tensor(rng.standard_normal((geom.n, b)), device=dev,
+                             dtype=dtype)
+            got = sf.fused_gram_matvec(geom, lam, op.noise2, v)
+            want = sf.fused_gram_matvec_plain(geom, lam, op.noise2, v)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            bms, by = ski_bound(geom, b, 0, dtype)
+            cases["ski_gram"].append(dict(
+                kind="k2", n=geom.n, m_grid=geom.m_grid, L=geom.L, b=b,
+                dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                max_rel_err=rel,
+                ms=time_ms(lambda: sf.fused_gram_matvec(
+                    geom, lam, op.noise2, v), 20),
+                plain_ms=time_ms(lambda: sf.fused_gram_matvec_plain(
+                    geom, lam, op.noise2, v), 10),
+                bound_ms=bms, bound_by=by))
+        for kind in ("k1", "k2"):
+            if dtype == torch.float32 and kind == "k1":
+                continue
+            theta = torch.tensor(SKI_THETA[kind], dtype=torch.float64,
+                                 device=dev)
+            lams = sf.spectrum(opers.ToeplitzOperator(
+                kind, op.grid).first_column_jacobian(theta),
+                geom).to(dtype)
+            v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev,
+                             dtype=dtype)
+            got = sf.fused_tangent_matvecs(geom, lams, v)
+            want = sf.fused_tangent_matvecs_plain(geom, lams, v)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            m = int(lams.shape[0])
+            bms, by = ski_bound(geom, 9, m, dtype)
+            cases["ski_tangent"].append(dict(
+                kind=kind, n=geom.n, m_grid=geom.m_grid, L=geom.L, b=9, m=m,
+                dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                max_rel_err=rel,
+                ms=time_ms(lambda: sf.fused_tangent_matvecs(geom, lams, v),
+                           20),
+                plain_ms=time_ms(lambda: sf.fused_tangent_matvecs_plain(
+                    geom, lams, v), 10),
+                bound_ms=bms, bound_by=by))
+    crossover = []
+    for months in (2, 6, TIDAL_MONTHS):
+        xs, _, _, _ = make_tidal_data(seed, months=months)
+        op = opers.select_operator("k2", torch.tensor(xs, device=dev),
+                                   TIDAL_SIGMA_N, 1e-8)
+        geom = op.fused_geom
+        theta = torch.tensor(SKI_THETA["k2"], dtype=torch.float64,
+                             device=dev)
+        lam = sf.spectrum(opers.ToeplitzOperator("k2", op.grid)
+                          .first_column(theta), geom)
+        v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev)
+        row = dict(n=geom.n, m_grid=geom.m_grid, L=geom.L, b=9,
+                   ms=time_ms(lambda: sf.fused_gram_matvec(
+                       geom, lam, op.noise2, v), 20),
+                   plain_ms=time_ms(lambda: sf.fused_gram_matvec_plain(
+                       geom, lam, op.noise2, v), 20))
+        crossover.append(row)
+        emit({"ski_gram_crossover": row})
+    return crossover
 
 
 # the case that stands for each kernel in the summary line: the shape the
 # workflow launches most (k2, training CG / gradient, predict cross block)
 HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
             "tile_tangent": dict(kind="k2"),
-            "tile_matrix": dict(kind="k2")}
+            "tile_matrix": dict(kind="k2"),
+            "ski_gram": dict(b=9, dtype="float64"),
+            "ski_tangent": dict(kind="k2", dtype="float64")}
 
 
 def headline(name, rows):
@@ -262,97 +444,302 @@ def headline(name, rows):
 
 
 # ---------------------------------------------------------------------------
-# workflow phase
+# workflow phases
 # ---------------------------------------------------------------------------
 
+class Stages:
+    """Times the stages of one phase; keeps, per stage, how its CG solves
+    ended, the eigenvalues of each Laplace Hessian it formed and, given
+    ``kernels``, the launches of those kernels during the stage."""
+
+    def __init__(self, phase, kernels=(), info=None):
+        self.phase = phase
+        self.kernels = kernels
+        self.info = info or (lambda: {})
+        self.s, self.cg_stops, self.hessians, self.launches = {}, {}, {}, {}
+
+    def __call__(self, name, fn):
+        it.reset_cg_stops()
+        laplace.HESSIAN_EIGENVALUES.clear()
+        before = {k: _cuda.LAUNCHES[k] for k in self.kernels}
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.s[name] = time.perf_counter() - t0
+        self.cg_stops[name] = dict(
+            tol=it.CG_STOPS["tol"], max_iter=it.CG_STOPS["max_iter"],
+            worst_residual_at_max_iter=it.CG_WORST_RESIDUAL[0])
+        self.hessians[name] = [lam.tolist()
+                               for lam in laplace.HESSIAN_EIGENVALUES]
+        self.launches[name] = {k: _cuda.LAUNCHES[k] - before[k]
+                               for k in self.kernels}
+        line = {"stage": name, "phase": self.phase, "s": self.s[name],
+                "cg_stops": self.cg_stops[name],
+                "hessian_eigenvalues": self.hessians[name]}
+        if self.kernels:
+            line.update(self.info(), launches=self.launches[name])
+        emit(line)
+        return out
+
+
+def check_posterior(post, sf2, sigma_n, summary):
+    var = post.var
+    if post.mean.shape != (N_STAR,) or var.shape != (N_STAR,):
+        raise AssertionError("posterior has the wrong shape")
+    if not bool(torch.isfinite(post.mean).all()):
+        raise AssertionError("posterior mean is not finite")
+    if not (float(var.min()) >= 0.0
+            and float(var.max()) <= sf2 * (1.0 + sigma_n ** 2)):
+        raise AssertionError(f"variance outside [0, sigma_f^2 (1 + "
+                             f"sigma_n^2)]: {summary}")
+
+
+def check_finite(pairs):
+    for label, val in pairs:
+        if not math.isfinite(float(val)):
+            raise AssertionError(f"{label} is not finite: {val}")
+
+
+def check_launched(launches, names, phase):
+    for name in names:
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"{phase} phase: {launches}")
+
+
 def workflow_phase(x_np, y_np, xstar_np, seed, budget):
+    """The irregular path (tile operator): bind -> fit -> log_evidence ->
+    predict.  (Its compare stage runs the same sequential compare as the
+    SKI phase and was left out to keep the script inside its limit.)"""
     opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
                           cg_max_iter=400)
     plan = BUDGETS[budget]
     policy = gp.SolverPolicy(backend="auto", n_starts=2,
                              max_iters=plan["max_iters"],
                              scan_points=plan["scan_points"], opts=opts)
-    specs = gp.spec_bank(["k1", "k2"], noise=gp.NoiseModel(sigma_n=SIGMA_N),
-                         solver=policy)
+    spec = gp.GPSpec("k2", noise=gp.NoiseModel(sigma_n=SIGMA_N),
+                     solver=policy)
     if plan["tidal_boxes"]:
-        boxes = tidal_boxes()
-        specs = [s.with_box(boxes[s.name]) for s in specs]
+        spec = spec.with_box(tidal_boxes()["k2"])
     key = rnd.key(seed)
-    kfit, kev, kcmp = rnd.split(key, 3)
-    stages, cg_stops, hessians = {}, {}, {}
-
-    def stage(name, fn):
-        """Time one stage; keep how its CG solves ended and the
-        eigenvalues of each Laplace Hessian it formed."""
-        it.reset_cg_stops()
-        laplace.HESSIAN_EIGENVALUES.clear()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        stages[name] = time.perf_counter() - t0
-        cg_stops[name] = dict(
-            tol=it.CG_STOPS["tol"], max_iter=it.CG_STOPS["max_iter"],
-            worst_residual_at_max_iter=it.CG_WORST_RESIDUAL[0])
-        hessians[name] = [lam.tolist()
-                          for lam in laplace.HESSIAN_EIGENVALUES]
-        emit({"stage": name, "s": stages[name], "cg_stops": cg_stops[name],
-              "hessian_eigenvalues": hessians[name]})
-        return out
+    kfit, kev, _ = rnd.split(key, 3)
+    stage = Stages("irregular")
 
     _cuda.reset_launches()
     _sync.reset()
-    session = stage("bind", lambda: gp.GP.bind(specs[1], x_np, y_np))
+    session = stage("bind", lambda: gp.GP.bind(spec, x_np, y_np))
     if (session.backend, session.operator_name) != ("iterative", "pallas"):
         raise AssertionError(f"bound {session!r}, expected the iterative "
                              "backend on the tile operator")
     fitted = stage("fit", lambda: session.fit(kfit))
     evidence = stage("log_evidence", lambda: fitted.log_evidence(key=kev))
-    reports = stage("compare", lambda: gp.compare(specs, x_np, y_np,
-                                                  key=kcmp))
     post = stage("predict", lambda: fitted.predict(xstar_np))
+    launches = dict(_cuda.LAUNCHES)
+    syncs = dict(_sync.COUNT)
+
+    res = fitted.result
+    sf2 = float(res.sigma_f_hat) ** 2
+    summary = dict(
+        n=N, n_star=N_STAR, seed=seed, budget=budget, stage_s=stage.s,
+        log_p_max=float(res.log_p_max), theta_hat=res.theta_hat.tolist(),
+        log_p_all=res.log_p_all.tolist(), n_evals=res.n_evals,
+        log_z=float(evidence.log_z), n_modes=evidence.n_modes,
+        host_syncs=sum(syncs.values()), host_syncs_by_loop=syncs,
+        launches=launches, var_min=float(post.var.min()),
+        var_max=float(post.var.max()), sigma_f_hat_sq=sf2,
+        cg_stops=stage.cg_stops, hessian_eigenvalues=stage.hessians)
+    emit({"workflow": summary})
+    check_launched(launches, TILE_KERNELS, "irregular")
+    check_finite((("ln P_max", res.log_p_max), ("ln Z", evidence.log_z)))
+    check_posterior(post, sf2, SIGMA_N, summary)
+    return summary
+
+
+def ski_phase(seed):
+    """The near-grid path: a gappy tide record through the SKI operator
+    (B5 and B6) with the circulant preconditioner: bind(k2) -> fit ->
+    log_evidence -> compare([k1, k2], batch="off") -> predict."""
+    x_np, y_np, xstar_np, n_full = make_tidal_data(seed)
+    opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
+                          cg_max_iter=400, precond="auto")
+    policy = gp.SolverPolicy(backend="auto", n_starts=2, max_iters=25,
+                             scan_points=64, opts=opts)
+    boxes = tidal_boxes()
+    specs = [gp.GPSpec(k, box=boxes[k],
+                       noise=gp.NoiseModel(sigma_n=TIDAL_SIGMA_N),
+                       solver=policy) for k in ("k1", "k2")]
+    key = rnd.key(seed + 1000)
+    kfit, kev, kcmp = rnd.split(key, 3)
+    bound_op = {}
+
+    def info():
+        op = bound_op["op"]
+        pc = it.make_preconditioner(
+            op, torch.tensor(SKI_THETA["k2"], device=op.x.device),
+            opts.precond, opts.precond_rank)
+        return dict(operator=op.name, m_grid=op.m_grid,
+                    L=op.fused_geom.L if op.fused_geom else None,
+                    fused=op.fused,
+                    precond=eng.select_precond(op, opts),
+                    slq_precond=pc is not None and pc.slq is not None)
+
+    stage = Stages("ski", SKI_KERNELS, info)
+    _cuda.reset_launches()
+    _sync.reset()
+
+    def bind():
+        s = gp.GP.bind(specs[1], x_np, y_np)
+        bound_op["op"] = s.op
+        return s
+
+    session = stage("bind", bind)
+    op = session.op
+    desc = info()
+    if (session.backend, op.name, desc["fused"]) != ("iterative", "ski",
+                                                     True):
+        raise AssertionError(f"bound {session!r} (fused {desc['fused']}), "
+                             "expected the iterative backend on the fused "
+                             "SKI operator")
+    if (desc["precond"], desc["slq_precond"]) != ("circulant", True):
+        raise AssertionError(f"precond resolved to {desc}, expected "
+                             "'circulant' with the masked-circulant SLQ")
+    fitted = stage("fit", lambda: session.fit(kfit))
+    evidence = stage("log_evidence", lambda: fitted.log_evidence(key=kev))
+    reports = stage("compare", lambda: gp.compare(
+        specs, x_np, y_np, key=kcmp, batch="off"))
+    post = stage("predict", lambda: fitted.predict(xstar_np,
+                                                   cross="interp"))
+    var_before_clamp_min = predict.VAR_BEFORE_CLAMP_MIN[0]
     launches = dict(_cuda.LAUNCHES)
     syncs = dict(_sync.COUNT)
 
     lnb = float(gp.log_bayes_factors(reports)[1, 0])
     res = fitted.result
     sf2 = float(res.sigma_f_hat) ** 2
-    var = post.var
     summary = dict(
-        n=N, n_star=N_STAR, seed=seed, budget=budget, stage_s=stages,
-        log_p_max=float(res.log_p_max), theta_hat=res.theta_hat.tolist(),
-        log_p_all=res.log_p_all.tolist(), n_evals=res.n_evals,
-        log_z=float(evidence.log_z), n_modes=evidence.n_modes,
+        n=session.n, n_full=n_full, n_star=N_STAR, seed=seed, **desc,
+        stage_s=stage.s, log_p_max=float(res.log_p_max),
+        theta_hat=res.theta_hat.tolist(), log_p_all=res.log_p_all.tolist(),
+        n_evals=res.n_evals, log_z=float(evidence.log_z),
+        n_modes=evidence.n_modes,
         compare={r.name: dict(log_z=r.log_z_laplace, log_p_max=r.log_p_max,
+                              theta_hat=r.theta_hat.tolist(),
                               n_modes=r.n_modes, n_evals=r.n_evals_train)
                  for r in reports},
         ln_b_k2_vs_k1=lnb, host_syncs=sum(syncs.values()),
         host_syncs_by_loop=syncs, launches=launches,
-        var_min=float(var.min()), var_max=float(var.max()),
-        sigma_f_hat_sq=sf2, cg_stops=cg_stops,
-        hessian_eigenvalues=hessians)
-    emit({"workflow": summary})
-
-    for name in SOURCES:
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the "
-                                 f"workflow: {launches}")
-    for label, val in (("ln P_max", res.log_p_max), ("ln Z", evidence.log_z),
-                       ("ln B", lnb)):
-        if not math.isfinite(float(val)):
-            raise AssertionError(f"{label} is not finite: {val}")
-    if post.mean.shape != (N_STAR,) or var.shape != (N_STAR,):
-        raise AssertionError("posterior has the wrong shape")
-    if not bool(torch.isfinite(post.mean).all()):
-        raise AssertionError("posterior mean is not finite")
-    if not (float(var.min()) >= 0.0
-            and float(var.max()) <= sf2 * (1.0 + SIGMA_N ** 2)):
-        raise AssertionError(f"variance outside [0, sigma_f^2 (1 + "
-                             f"sigma_n^2)]: {summary}")
+        stage_launches=stage.launches, var_min=float(post.var.min()),
+        var_max=float(post.var.max()),
+        var_before_clamp_min=var_before_clamp_min, sigma_f_hat_sq=sf2,
+        cg_stops=stage.cg_stops, hessian_eigenvalues=stage.hessians)
+    emit({"ski_workflow": summary})
+    summary["at_peak"] = check_at_peak(fitted, post, xstar_np, seed)
+    check_launched(launches, SKI_KERNELS, "SKI")
+    check_finite((("ln P_max", res.log_p_max), ("ln Z", evidence.log_z),
+                  ("ln B", lnb)))
+    check_posterior(post, sf2, TIDAL_SIGMA_N, summary)
     return summary
 
 
+def check_at_peak(fitted, post, xstar_np, seed):
+    """The SKI phase's answers at its fitted peak against the exact GP.
+
+    The phase's CG solves stop at cg_max_iter behind the policy's
+    circulant preconditioner, its ln P carries the SLQ log-det, and its
+    variance the interpolated cross covariance.  On the gappy record W is
+    a one-hot selection, so the SKI gram is the dense K(x, x) + noise2 I:
+    at theta_hat this builds it (B4), factors it (Cholesky on the card)
+    and
+      - fails if a cut solve of [y | 8 probes], made as the phase makes
+        it, has a larger K-norm error than the zero start in any column
+        (preconditioned CG never increases it in exact arithmetic, so a
+        larger one is divergence, whatever the residual says);
+      - reports the phase's errors against the exact values: ln P at the
+        peak, the posterior mean and the variance (as returned, and its
+        least value before predict's clamp at 0), with the errors of the
+        interpolated cross covariance alone (solved exactly).
+    """
+    op, kind = fitted.op, fitted.kind
+    opts = fitted.spec.solver.opts
+    x, y = fitted.x, fitted.y
+    n = op.n
+    theta = fitted.result.theta_hat.to(x.device)
+    p = ops.natural_params(kind, theta)
+    xs = torch.as_tensor(xstar_np, device=x.device, dtype=x.dtype)
+    K = kt.tile_matrix(kind, p, x, x)
+    K.diagonal().add_(op.noise2)
+    chol, info = torch.linalg.cholesky_ex(K)
+    if int(info) != 0:
+        raise AssertionError(f"K at the peak is not positive definite "
+                             f"(cholesky info {int(info)})")
+    rhs = torch.cat([y[:, None], rnd.rademacher(
+        rnd.key(seed), (n, 8), device=x.device, dtype=x.dtype)], dim=1)
+    exact = torch.cholesky_solve(rhs, chol)
+    pc = it.make_preconditioner(op, theta, opts.precond, opts.precond_rank)
+    cut = it.cg_solve(opers.bound_gram_matvec(op, theta, x.dtype), rhs,
+                      tol=opts.cg_tol, max_iter=opts.cg_max_iter,
+                      precond=pc.apply if pc is not None else None)
+    err = cut.x - exact
+    knorm_err = torch.sqrt(torch.sum(err * (K @ err), dim=0)
+                           / torch.sum(exact * rhs, dim=0))
+    s2 = float(y @ exact[:, 0]) / n
+    ln_p = (-0.5 * n * (math.log(2.0 * math.pi) + 1.0 + math.log(s2))
+            - float(torch.sum(torch.log(torch.diagonal(chol)))))
+    s2_cut = float(y @ cut.x[:, 0]) / n
+
+    def posterior(ks):
+        quad = torch.sum(torch.linalg.solve_triangular(
+            chol, ks, upper=False) ** 2, dim=0)
+        var = s2 * (1.0 - quad)
+        if fitted.spec.noise.include_noise:
+            var = var + s2 * TIDAL_SIGMA_N ** 2
+        return ks.T @ exact[:, 0], var
+
+    mean, var = posterior(kt.tile_matrix(kind, p, x, xs))
+    mean_interp, var_interp = posterior(
+        op.cross_columns(theta, op.cross_interp(xs)))
+    out = dict(
+        cut_iters=cut.iters, cut_resnorm_max=float(cut.resnorm.max()),
+        knorm_rel_err=knorm_err.tolist(), ln_p_exact=ln_p,
+        ln_p_phase=float(fitted.result.log_p_max),
+        ln_p_datafit_err_cut=0.5 * n * abs(math.log(s2_cut / s2)),
+        mean_err_max=float((post.mean - mean).abs().max()),
+        mean_interp_err_max=float((mean_interp - mean).abs().max()),
+        var_exact_min=float(var.min()), var_exact_max=float(var.max()),
+        var_err_max=float((post.var - var).abs().max()),
+        var_interp_err_max=float((var_interp - var).abs().max()))
+    emit({"at_peak": out})
+    check_finite((("exact ln P at the peak", ln_p),
+                  ("K-norm error of the cut solve", knorm_err.max())))
+    if not float(knorm_err.max()) <= 1.0:
+        raise AssertionError(f"the SKI phase's CG diverges at the peak: its "
+                             f"K-norm error exceeds the zero start's: {out}")
+    return out
+
+
+def card_vs_cpu(spec, x, y, theta, sigma_n, dev):
+    """ln P_max and gradient at theta on the card and on the CPU path,
+    with the same probes; returns (relative errors, operator name)."""
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        s = gp.GP.bind(spec, x, y, device=device)
+        solver = eng.make_solver("iterative", s.cov,
+                                 torch.tensor(theta, device=device), s.x, s.y,
+                                 sigma_n, key=rnd.key(4), jitter=s.jitter,
+                                 opts=spec.solver.opts, op=s.op)
+        out[device.type] = (float(eng.profiled_loglik(solver)),
+                            eng.profiled_grad(solver).cpu().numpy())
+    lp_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    g_rel = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1]))
+                  / np.max(np.abs(out["cpu"][1])))
+    return lp_rel, g_rel, s.op.name
+
+
 def small_input_check(dev):
-    """ln P_max and its gradient on the card against the CPU path."""
+    """ln P_max and its gradient on the card against the CPU path: an
+    irregular input (tiles), a gappy record (SKI, B5/B6, circulant
+    preconditioner with the masked-circulant SLQ) and its un-dropped grid
+    (Toeplitz)."""
     rng = np.random.default_rng(1)
     x = np.sort(rng.uniform(0.0, 600.0, 300))
     y = np.sin(2.0 * np.pi * x / 12.42) + SIGMA_N * rng.standard_normal(300)
@@ -360,31 +747,37 @@ def small_input_check(dev):
                           cg_max_iter=2000)
     spec = gp.GPSpec("k2", noise=gp.NoiseModel(sigma_n=SIGMA_N),
                      solver=gp.SolverPolicy(backend="iterative", opts=opts))
-    theta = np.asarray(THETA["k2"])
-    out = {}
-    for device in (dev, torch.device("cpu")):
-        s = gp.GP.bind(spec, x, y, device=device)
-        solver = eng.make_solver("iterative", s.cov,
-                                 torch.tensor(theta, device=device), s.x, s.y,
-                                 SIGMA_N, key=rnd.key(4), jitter=s.jitter,
-                                 opts=opts, op=s.op)
-        out[device.type] = (float(eng.profiled_loglik(solver)),
-                            eng.profiled_grad(solver).cpu().numpy())
-    lp_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
-    g_rel = float(np.max(np.abs(out["cuda"][1] - out["cpu"][1]))
-                  / np.max(np.abs(out["cpu"][1])))
-    emit({"small_input_check": dict(n=300, log_p_max_rel_err=lp_rel,
-                                    grad_rel_err=g_rel)})
-    if not (lp_rel < 1e-8 and g_rel < 1e-8):
-        raise AssertionError("the card and the CPU path disagree on a "
-                             "small input")
+    checks = [(300, "pallas", card_vs_cpu(spec, x, y, THETA["k2"], SIGMA_N,
+                                          dev))]
+    # a gappy record (n ~ 600) and its full grid
+    xg, yg, _, n_full = make_tidal_data(2, months=2)
+    tspec = gp.GPSpec("k2", noise=gp.NoiseModel(sigma_n=TIDAL_SIGMA_N),
+                      solver=gp.SolverPolicy(
+                          backend="iterative",
+                          opts=opts._replace(precond="circulant")))
+    checks.append((len(xg), "ski", card_vs_cpu(tspec, xg, yg,
+                                               SKI_THETA["k2"],
+                                               TIDAL_SIGMA_N, dev)))
+    xf, yf, _, _ = make_tidal_data(2, months=2, drop=0.0)
+    checks.append((n_full, "toeplitz", card_vs_cpu(
+        tspec, xf, yf, SKI_THETA["k2"], TIDAL_SIGMA_N, dev)))
+    for n, want_op, (lp_rel, g_rel, got_op) in checks:
+        emit({"small_input_check": dict(n=n, operator=got_op,
+                                        log_p_max_rel_err=lp_rel,
+                                        grad_rel_err=g_rel)})
+        if got_op != want_op:
+            raise AssertionError(f"small input bound {got_op}, expected "
+                                 f"{want_op}")
+        if not (lp_rel < 1e-8 and g_rel < 1e-8):
+            raise AssertionError(f"the card and the CPU path disagree on a "
+                                 f"small input ({got_op})")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--budget", choices=sorted(BUDGETS), default="committed",
-                    help="NCG budget of the workflow phase")
+                    help="NCG budget of the irregular phase")
     ap.add_argument("--json", default=None,
                     help="also write every result to this JSON file")
     args = ap.parse_args(argv)
@@ -405,29 +798,36 @@ def main(argv=None) -> int:
     x = torch.tensor(x_np, device=dev)
     xstar = torch.tensor(xstar_np, device=dev)
     rng = np.random.default_rng(args.seed + 1)
-    cases = kernel_phase(x, xstar, dev, rng)
+    cases, crossover = kernel_phase(x, xstar, dev, rng, args.seed)
     summary = workflow_phase(x_np, y_np, xstar_np, args.seed, args.budget)
+    ski = ski_phase(args.seed)
     small_input_check(dev)
 
+    launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
+                **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS}}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         h = headline(name, cases[name])
+        f64 = [r for r in cases[name] if r.get("dtype", "float64")
+               == "float64"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=summary["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in cases[name]),
-            max_rel_err=max(r["max_rel_err"] for r in cases[name]),
+            launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in f64),
+            max_rel_err=max(r["max_rel_err"] for r in f64),
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=None,
             shape={k: v for k, v in h.items()
-                   if k in ("kind", "n1", "n2", "b", "m")}))
+                   if k in ("kind", "n", "n1", "n2", "m_grid", "L", "b",
+                            "m", "dtype")}))
     emit({"kernels": kernels})
     if args.json:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
-            device=smi, build_s=build_s, cases=cases, workflow=summary,
-            kernels=kernels, ptxas=_cuda.KERNELS.ptxas_log), indent=1))
+            device=smi, build_s=build_s, cases=cases, crossover=crossover,
+            workflow=summary, ski_workflow=ski, kernels=kernels,
+            ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,8 +3,10 @@
 Counterpart of ``repro/core/engine.py``: :class:`IterativeSolver` serves
 every quantity of the paper's workflow — solves, ln det K, sigma_f_hat^2
 (eq. 2.15) and the stacked gradient terms of eq. (2.17) — from batched CG,
-SLQ and Hutchinson probes over the bound linear operator.  On the tile
-operator every matrix access is a B1 or B2 launch; K is never stored.
+SLQ (plain or preconditioned) and Hutchinson probes over the bound linear
+operator.  On the tile operator every matrix access is a B1 or B2 launch;
+on a fused SKI operator (a gappy record) a B5 or B6 launch; K is never
+stored.
 Backends and options that the port does not run yet raise and name the
 slice that brings them.
 """
@@ -30,9 +32,10 @@ BACKENDS = ("dense", "iterative", "stochastic")
 
 class SolverOpts(NamedTuple):
     """Iterative-backend knobs; the same fields and defaults as the JAX
-    package.  Only operator None/"pallas", precond None/"auto" and
-    precond_rank 0 are ported; the stochastic and fused-SKI fields are
-    carried for parity and not read."""
+    package.  Ported: operator None/"pallas"/"toeplitz"/"ski", precond
+    None/"auto"/"circulant" with precond_rank 0, and fused.  The
+    stochastic fields are carried for parity and not read, and so is
+    fused_tile_mb (the JAX package's VMEM budget has no counterpart)."""
 
     n_probes: int = 16
     lanczos_k: int = 64
@@ -78,7 +81,8 @@ class IterativeSolver:
         self.opts = opts
         self.n = int(y.shape[0])
         self.op = op if op is not None else kopers.select_operator(
-            kind, x, sigma_n, jitter, operator=opts.operator)
+            kind, x, sigma_n, jitter, operator=opts.operator,
+            fused=opts.fused)
         self._mv_bound = kopers.bound_gram_matvec(self.op, theta, y.dtype)
         self._precond = it.make_preconditioner(self.op, theta, opts.precond,
                                                opts.precond_rank)
@@ -123,10 +127,17 @@ class IterativeSolver:
 
     def logdet(self):
         if self._logdet is None:
+            pc = self._precond
             if self._z_slq is not None:
                 alphas, betas = it.lanczos(self._mv_bound, self._z_slq,
                                            self.opts.lanczos_k)
-                self._logdet = it.slq_quadrature(alphas, betas, self.n)
+                self._logdet = it.slq_plain_logdet(alphas, betas, self.n)
+            elif pc is not None and pc.slq is not None:
+                # preconditioned SLQ: Lanczos on P^{-1/2} K P^{-1/2}
+                self._logdet = it.slq_logdet_precond(
+                    self._mv_bound, pc.slq, rnd.fold_in(self.key, 1),
+                    n_probes=self.opts.n_probes, k=self.opts.lanczos_k,
+                    dtype=self.y.dtype)
             else:
                 self._logdet = it.slq_logdet(
                     self._mv_bound, self.n, rnd.fold_in(self.key, 1),
@@ -149,6 +160,18 @@ class IterativeSolver:
         tr = torch.mean(torch.einsum("jp,mjp->mp", Kinv_z, dkv[:, :, 1:]),
                         dim=-1)
         return quad, tr
+
+
+def select_precond(op, opts: SolverOpts = SolverOpts()) -> Optional[str]:
+    """Resolved preconditioner choice for one bound operator (the
+    ``precond="auto"`` policy, :func:`iterative.resolve_precond`)."""
+    return it.resolve_precond(opts.precond, op, opts.precond_rank)
+
+
+def select_fused(op) -> bool:
+    """Resolved fused-kernel decision for one bound operator (operators
+    resolve ``fused`` at construction; this reads it back)."""
+    return bool(getattr(op, "fused", False))
 
 
 def resolve_kind(cov: Covariance) -> str:

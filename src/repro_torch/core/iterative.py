@@ -1,11 +1,12 @@
-"""Matrix-free solves and log-determinants: batched CG and SLQ.
+"""Matrix-free solves and log-determinants: batched CG, SLQ and their
+preconditioned forms.
 
-Counterpart of the plain (unpreconditioned) half of
-``repro/core/iterative.py``: every iteration is one multi-vector gram
-matvec through the bound operator (on the tile operator, one B1 launch).
-The loops are Python loops; where the JAX package's ``while_loop`` tests a
-device value, the port reads it back once per iteration (counted in
-:mod:`repro_torch._sync`).
+Counterpart of ``repro/core/iterative.py`` (the pivoted-Cholesky
+preconditioner excepted): every iteration is one multi-vector gram matvec
+through the bound operator (on the tile operator one B1 launch, on a fused
+SKI operator one B5 launch).  The loops are Python loops; where the JAX
+package's ``while_loop`` tests a device value, the port reads it back once
+per iteration (counted in :mod:`repro_torch._sync`).
 """
 
 from __future__ import annotations
@@ -117,12 +118,20 @@ def slq_logdet(matvec: Callable, n: int, key, n_probes: int = 16,
     """
     z = rnd.rademacher(key, (n, n_probes), device=device, dtype=dtype)
     alphas, betas = lanczos(matvec, z, k)
-    return slq_quadrature(alphas, betas, n)
+    return slq_plain_logdet(alphas, betas, n)
 
 
-def slq_quadrature(alphas, betas, n: int):
-    """n * mean over probes of sum_i U[0, i]^2 ln(lambda_i) of each probe's
-    Lanczos tridiagonal (alphas (k, p), betas (k-1, p))."""
+def slq_plain_logdet(alphas, betas, n: int):
+    """The plain SLQ estimate from Rademacher-probe Lanczos tridiagonals
+    (alphas (k, p), betas (k-1, p)): n * mean over probes of
+    sum_i U[0, i]^2 ln(lambda_i)."""
+    ones = alphas.new_ones(alphas.shape[1])
+    return n * torch.mean(slq_quadrature(alphas, betas, ones))
+
+
+def slq_quadrature(alphas, betas, unorm2):
+    """Per-probe Gauss quadrature of the (preconditioned) Lanczos
+    tridiagonals: vals_p = unorm2_p sum_i U[0, i]^2 ln(lambda_i(T_p))."""
     k = alphas.shape[0]
     T = torch.diag_embed(alphas.T)
     if k > 1:
@@ -130,24 +139,95 @@ def slq_quadrature(alphas, betas, n: int):
     if not _sync.host(torch.all(torch.isfinite(T)), "slq"):
         # a non-finite matvec (e.g. a smoothness at the box edge): the
         # log-det is nan, as jnp.linalg.eigh gives it; torch would raise
-        return torch.full((), torch.nan, dtype=T.dtype, device=T.device)
+        return torch.full_like(unorm2, torch.nan)
     lam, U = torch.linalg.eigh(T)
     lam = torch.clamp(lam, min=1e-30)
-    vals = torch.sum(U[:, 0, :] ** 2 * torch.log(lam), dim=-1)
-    return n * torch.mean(vals)
+    return unorm2 * torch.sum(U[:, 0, :] ** 2 * torch.log(lam), dim=-1)
+
+
+def preconditioned_lanczos(matvec: Callable, pinv: Callable, z0, k: int):
+    """k-step Lanczos on M = P^{-1/2} K P^{-1/2} without square roots.
+
+    In the basis z_j = P^{1/2} u_j, s_j = P^{-1} z_j every step needs one K
+    matvec and one P^{-1} apply:
+
+        alpha_j = s_j^T K s_j,
+        beta_j z_{j+1} = K s_j - alpha_j z_j - beta_{j-1} z_{j-1},
+
+    normalised by z_j^T s_j = 1, fully reorthogonalised in the P^{-1}
+    inner product against the stored s-basis.  z0: (n, p) start block
+    with E[z z^T] = P.  Returns (alphas (k, p), betas (k-1, p), unorm2
+    (p,)), unorm2 = z0^T P^{-1} z0.
+    """
+    n, pb = z0.shape
+    s_raw = pinv(z0)
+    unorm2 = torch.sum(z0 * s_raw, dim=0)
+    beta0 = torch.sqrt(torch.clamp(unorm2, min=1e-300))
+    Z = z0.new_zeros((k, n, pb))
+    S = z0.new_zeros((k, n, pb))
+    Z[0] = z0 / beta0
+    S[0] = s_raw / beta0
+    alphas = z0.new_zeros((k, pb))
+    betas = z0.new_zeros((max(k - 1, 1), pb))
+    for i in range(k):
+        zi, si = Z[i], S[i]
+        w = matvec(si)
+        a = torch.sum(si * w, dim=0)
+        w = w - a * zi
+        if i > 0:
+            w = w - betas[i - 1] * Z[i - 1]
+        proj = torch.einsum("knp,np->kp", S[: i + 1], w)
+        w = w - torch.einsum("kp,knp->np", proj, Z[: i + 1])
+        alphas[i] = a
+        if i + 1 < k:
+            wp = pinv(w)
+            b = torch.sqrt(torch.clamp(torch.sum(w * wp, dim=0), min=1e-300))
+            Z[i + 1] = w / b
+            S[i + 1] = wp / b
+            betas[i] = b
+    return alphas, betas, unorm2
+
+
+def slq_logdet_precond(matvec: Callable, slq_pre, key, n_probes: int = 16,
+                       k: int = 16, dtype=torch.float64):
+    """ln det K = ln det P + tr ln(P^{-1/2} K P^{-1/2}), estimated.
+
+    Probes z ~ N(0, P) (``slq_pre.sample``); the estimate is
+    mean_z[(z^T P^{-1} z) sum_i U[0, i]^2 ln lambda_i(T)] with T the
+    preconditioned-Lanczos tridiagonal.  ``slq_pre`` is an
+    :class:`~repro_torch.kernels.operators.SLQPrecond`.
+    """
+    z = slq_pre.sample(key, n_probes).to(dtype)
+    alphas, betas, unorm2 = preconditioned_lanczos(
+        matvec, lambda r: slq_pre.apply_inv(r).to(dtype), z, k)
+    vals = slq_quadrature(alphas, betas, unorm2)
+    return slq_pre.logdet.to(dtype) + torch.mean(vals)
 
 
 # ---------------------------------------------------------------------------
-# Preconditioner selection (only "no preconditioner" is ported)
+# Preconditioners (the circulant one is ported, pivoted Cholesky is not)
 # ---------------------------------------------------------------------------
+
+def circulant_precond_for_operator(op, theta, floor: float = 1e-12
+                                   ) -> Callable:
+    """Circulant preconditioner via the operator's own
+    ``circulant_precond(theta)`` hook."""
+    return op.circulant_precond(theta, floor)
+
 
 PRECONDITIONERS = ("pivchol", "circulant")
 PRECOND_CHOICES = PRECONDITIONERS + ("auto",)
+# The "auto" policy's thresholds are the JAX package's, verbatim: they
+# decide which log-det estimator runs, so parity needs them.  They are the
+# reference's policy, not measurements on the card.
 PRECOND_AUTO_MIN_N = 2048
 PRECOND_AUTO_MIN_COND = 1e6
 
 
 class Preconditioner(NamedTuple):
+    """apply: r -> P_cg^{-1} r for CG; slq: the SLQPrecond accessors when
+    the structure has them (else plain SLQ); choice: the resolved name."""
+
     apply: Callable
     slq: Optional[object]
     choice: str
@@ -181,11 +261,20 @@ def resolve_precond(precond: Optional[str], op,
 
 def make_preconditioner(op, theta, precond: Optional[str] = None,
                         precond_rank: int = 0) -> Optional[Preconditioner]:
-    """The resolved preconditioner, or None for unpreconditioned CG."""
+    """The resolved preconditioner, or None for unpreconditioned CG.
+
+    "circulant": the structure's own Strang-type FFT apply, with the SLQ
+    accessors where the operator has ``slq_precond`` (Toeplitz; SKI on a
+    gappy record).
+    """
     choice = resolve_precond(precond, op, precond_rank)
     if choice is None:
         return None
     if choice == "pivchol":
         raise _pending.pending("the pivoted-Cholesky preconditioner",
                                _pending.PIVCHOL)
-    raise _pending.pending("the circulant preconditioner", _pending.GRID)
+    apply = circulant_precond_for_operator(op, theta)
+    slq_hook = getattr(op, "slq_precond", None)
+    return Preconditioner(apply,
+                          slq_hook(theta) if slq_hook is not None else None,
+                          "circulant")

@@ -1,0 +1,239 @@
+// The fused SKI sandwich, shared by B5 (ski_gram.cu) and B6
+// (ski_tangent.cu):
+//
+//     out_i = W irfft(lam_i * rfft(pad_L(W^T v))) [+ noise2 v]
+//
+// Replaces the TPU kernels fused_gram_matvec and fused_tangent_matvecs of
+// src/repro/kernels/ski_fused.py, which run W^T, the circulant-embedding
+// FFT pair and W inside one Pallas body with their own FFT (the TPU has no
+// FFT primitive in a kernel).  The FFT here is written by hand as well; no
+// library transform runs inside the path.
+//
+// What it computes, for a near-grid geometry (every data row in a distinct
+// cell of the m-cell inducing grid; occ: cell -> row, n marks an empty
+// cell; cell: row -> cell; wcell (m, s): the occupant's stencil weights
+// for the consecutive offsets d0 .. d0+s-1):
+//   W^T v:  u[c] = sum_o wcell[c-d_o, o] v[occ[c-d_o]], zero where c-d_o
+//           leaves [0, m) or the cell is empty;
+//   pack:   two real columns ride one complex column, zero rows to L;
+//   FFT, multiply by the real spectrum lam (1/L folded in), inverse FFT;
+//   W ku:   out[i] = sum_o wcell[cell_i, o] ku[cell_i + d_o] (+ noise2 v).
+// Pair packing is exact because both halves of a pair see the same real,
+// even spectrum.  B6 shares W^T and the forward FFT across its m_dirs
+// tangent spectra: the first inverse stage reads each forward column once
+// per direction and writes m_dirs * P columns.
+//
+// What bounds it on an H100: at the main path's shape (n ~ 7080,
+// m ~ 7875, L = 16384, b = 9, float64) the function must move ~1.5 MB
+// (~0.4 us at 3.35 TB/s) and do ~1.2e7 FFT operations (~0.3 us at
+// 34 TFLOP/s fp64): far below what one launch costs.  This first design
+// is launch-latency bound: W^T + 2 log4(L) Stockham stages + W, one launch
+// each (16 at L = 16384), every stage reading and writing the (P, L)
+// complex ping-pong buffer (1.3 MB at b = 9, so it stays in the 50 MB L2).
+// What the design does about it: radix-4 stages halve the passes of
+// radix 2; the buffers stay in L2; twiddles come from sincospi in double
+// on exact power-of-two fractions (never sin of a large argument); empty
+// cells are tested by their sentinel, never read.  A one-column-per-block
+// transform does not fit (one float64 column is 256 KB, a block has
+// 227 KB); a four-step L = L1 L2 split with the sub-transforms in shared
+// memory is the design for a later change.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ski {
+
+constexpr int kThreads = 256;
+
+template <typename T>
+struct alignas(2 * sizeof(T)) cplx {
+  T re, im;
+};
+
+// W^T v into packed columns: buf[p * L + c] = u[c, 2p] + i u[c, 2p+1].
+template <typename T>
+__global__ void wt_pack(int n, int m, int L, int d0, int s,
+                        const int* __restrict__ occ,
+                        const T* __restrict__ wcell,
+                        const T* __restrict__ v, int b,
+                        cplx<T>* __restrict__ buf) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int p = blockIdx.y;
+  if (c >= L) return;
+  const int j0 = 2 * p;
+  const bool two = j0 + 1 < b;
+  T re = T(0), im = T(0);
+  if (c < m) {
+    for (int o = 0; o < s; ++o) {
+      const int cc = c - d0 - o;
+      if (cc < 0 || cc >= m) continue;
+      const int row = occ[cc];
+      if (row >= n) continue;  // empty cell: the sentinel, never read
+      const T w = wcell[(size_t)cc * s + o];
+      const T* vr = v + (size_t)row * b + j0;
+      re += w * vr[0];
+      if (two) im += w * vr[1];
+    }
+  }
+  buf[(size_t)p * L + c] = cplx<T>{re, im};
+}
+
+// One radix-R Stockham pass (natural order in, natural order out after
+// the last pass).  Column `col` of dst reads column col % cols_src of src;
+// a non-null lam scales the loads by lam[(col / cols_src) * L + row] (the
+// spectrum multiply, folded into the first inverse pass).
+template <typename T, int R, bool INV>
+__global__ void fft_stage(const cplx<T>* __restrict__ src,
+                          cplx<T>* __restrict__ dst, int L, int Ns,
+                          int cols_src, const T* __restrict__ lam) {
+  const int stride = L / R;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= stride) return;
+  const int col = blockIdx.y;
+  const cplx<T>* in = src + (size_t)(col % cols_src) * L;
+  cplx<T>* out = dst + (size_t)col * L;
+  cplx<T> v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = in[j + r * stride];
+  if (lam != nullptr) {
+    const T* lm = lam + (size_t)(col / cols_src) * L;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T l = lm[j + r * stride];
+      v[r].re *= l;
+      v[r].im *= l;
+    }
+  }
+  const int k = j & (Ns - 1);
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    // e^{-+2 pi i k r / (Ns R)}: an exact power-of-two fraction of pi
+    double sn, cs;
+    sincospi((INV ? 2.0 : -2.0) * (double)(k * r) / (double)(Ns * R), &sn,
+             &cs);
+    const T c = T(cs), s = T(sn);
+    const T re = v[r].re * c - v[r].im * s;
+    const T im = v[r].re * s + v[r].im * c;
+    v[r] = cplx<T>{re, im};
+  }
+  if (R == 2) {
+    const cplx<T> a = v[0], b = v[1];
+    v[0] = cplx<T>{a.re + b.re, a.im + b.im};
+    v[1] = cplx<T>{a.re - b.re, a.im - b.im};
+  } else {
+    const cplx<T> a0{v[0].re + v[2].re, v[0].im + v[2].im};
+    const cplx<T> a1{v[0].re - v[2].re, v[0].im - v[2].im};
+    const cplx<T> a2{v[1].re + v[3].re, v[1].im + v[3].im};
+    const cplx<T> d{v[1].re - v[3].re, v[1].im - v[3].im};
+    // forward: -i d, inverse: +i d
+    const cplx<T> a3 = INV ? cplx<T>{-d.im, d.re} : cplx<T>{d.im, -d.re};
+    v[0] = cplx<T>{a0.re + a2.re, a0.im + a2.im};
+    v[1] = cplx<T>{a1.re + a3.re, a1.im + a3.im};
+    v[2] = cplx<T>{a0.re - a2.re, a0.im - a2.im};
+    v[3] = cplx<T>{a1.re - a3.re, a1.im - a3.im};
+  }
+  const int base = (j - k) * R + k;
+#pragma unroll
+  for (int r = 0; r < R; ++r) out[base + r * Ns] = v[r];
+}
+
+// W ku (+ noise2 v) from packed column col = dir * P + p into
+// out[dir, i, 2p], out[dir, i, 2p+1]; v null adds no noise.
+template <typename T>
+__global__ void w_apply(int n, int m, int L, int d0, int s,
+                        const int* __restrict__ cell,
+                        const T* __restrict__ wcell,
+                        const cplx<T>* __restrict__ buf, int P, T noise2,
+                        const T* __restrict__ v, int b,
+                        T* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int col = blockIdx.y;
+  const int dir = col / P;
+  const int j0 = 2 * (col % P);
+  const int c = cell[i];
+  const cplx<T>* ku = buf + (size_t)col * L;
+  T re = T(0), im = T(0);
+  for (int o = 0; o < s; ++o) {
+    const int cc = c + d0 + o;
+    if (cc < 0 || cc >= m) continue;
+    const T w = wcell[(size_t)c * s + o];
+    re += w * ku[cc].re;
+    im += w * ku[cc].im;
+  }
+  T* orow = out + ((size_t)dir * n + i) * b + j0;
+  const bool two = j0 + 1 < b;
+  if (v != nullptr) {
+    const T* vr = v + (size_t)i * b + j0;
+    orow[0] = re + noise2 * vr[0];
+    if (two) orow[1] = im + noise2 * vr[1];
+  } else {
+    orow[0] = re;
+    if (two) orow[1] = im;
+  }
+}
+
+template <typename T, bool INV>
+cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L,
+                         int Ns, int cols_out, int cols_src, const T* lam,
+                         cudaStream_t st) {
+  dim3 grid((L / R + kThreads - 1) / kThreads, cols_out);
+  if (R == 2)
+    fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
+                                                    cols_src, lam);
+  else
+    fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
+                                                    cols_src, lam);
+  return cudaGetLastError();
+}
+
+// The whole sandwich for m_dirs spectra lams (m_dirs, L) on v (n, b):
+// out (m_dirs, n, b).  noise_v is v for the gram (adds noise2 v) and null
+// for the tangents.  scratch0/1: two buffers of m_dirs * ceil(b/2) * L
+// complex values.  L is a power of two >= 2.
+template <typename T>
+cudaError_t sandwich(int n, int m, int L, int d0, int s, const int* occ,
+                     const T* wcell, const int* cell, const T* lams,
+                     int m_dirs, T noise2, const T* noise_v, const T* v,
+                     int b, T* out, T* scratch0, T* scratch1,
+                     cudaStream_t st) {
+  const int P = (b + 1) / 2;
+  const int cols = m_dirs * P;
+  if (n <= 0 || b <= 0 || m_dirs <= 0) return cudaSuccess;
+  if (L < 2 || (L & (L - 1)) != 0 || cols > 65535) return cudaErrorInvalidValue;
+  cplx<T>* bufs[2] = {reinterpret_cast<cplx<T>*>(scratch0),
+                      reinterpret_cast<cplx<T>*>(scratch1)};
+  wt_pack<T><<<dim3((L + kThreads - 1) / kThreads, P), kThreads, 0, st>>>(
+      n, m, L, d0, s, occ, wcell, v, b, bufs[0]);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  int log2L = 0;
+  while ((1 << log2L) < L) ++log2L;
+  int cur = 0;
+  // forward transform of the P packed columns
+  for (int Ns = 1; Ns < L;) {
+    const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
+    err = launch_stage<T, false>(R, bufs[cur], bufs[cur ^ 1], L, Ns, P, P,
+                                 nullptr, st);
+    if (err != cudaSuccess) return err;
+    cur ^= 1;
+    Ns *= R;
+  }
+  // inverse: the first pass multiplies by each direction's spectrum and
+  // spreads the P columns to m_dirs * P
+  for (int Ns = 1; Ns < L;) {
+    const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
+    const bool first = Ns == 1;
+    err = launch_stage<T, true>(R, bufs[cur], bufs[cur ^ 1], L, Ns, cols,
+                                first ? P : cols, first ? lams : nullptr, st);
+    if (err != cudaSuccess) return err;
+    cur ^= 1;
+    Ns *= R;
+  }
+  w_apply<T><<<dim3((n + kThreads - 1) / kThreads, cols), kThreads, 0, st>>>(
+      n, m, L, d0, s, cell, wcell, bufs[cur], P, noise2, noise_v, b, out);
+  return cudaGetLastError();
+}
+
+}  // namespace ski

@@ -1,9 +1,13 @@
-"""Grid-structure probe for 1-D input coordinates (host side, numpy).
+"""Grid-structure probes and SKI inducing grids for 1-D coordinates
+(host side, numpy).
 
-A copy of ``classify_grid`` and its helpers from ``repro/data/grid.py``:
-"exact" (a regular grid), "near" (gaps or small jitter around one regular
-grid) or "irregular".  The operator dispatch uses it to pick the structure;
-this slice runs only the "irregular" one and refuses the other two.
+Copies of ``repro/data/grid.py`` with the same arithmetic:
+``classify_grid`` says "exact" (a regular grid: Toeplitz), "near" (gaps or
+small jitter around one regular grid: SKI) or "irregular" (tiles);
+``build_inducing_grid`` and ``interp_weights`` build the SKI inducing grid
+and the sparse cubic/linear interpolation weights W with K ~ W K_grid W^T.
+A point on a grid node gets a one-hot row, so a gappy record makes W an
+exact selection matrix.
 """
 
 from __future__ import annotations
@@ -33,6 +37,18 @@ def grid_spacing(xc: np.ndarray, rtol: float = GRID_RTOL) -> Optional[float]:
     return h
 
 
+def is_regular_grid(x, rtol: float = GRID_RTOL) -> bool:
+    """True iff x is a strictly ascending, uniform 1-D grid."""
+    return grid_spacing(_host(x), rtol=rtol) is not None
+
+
+def _host(x) -> np.ndarray:
+    """numpy array, sequence or (CPU or CUDA) tensor -> numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 class GridInfo(NamedTuple):
     kind: str            # "exact" | "near" | "irregular"
     h: Optional[float]   # underlying spacing for "exact"/"near"
@@ -48,9 +64,7 @@ def classify_grid(x, rtol: float = GRID_RTOL,
     cell offsets, re-snap, and accept when every point lies within
     ``near_rtol * h`` of a distinct cell.
     """
-    if hasattr(x, "detach"):
-        x = x.detach().cpu().numpy()
-    xc = np.asarray(x)
+    xc = _host(x)
     if xc.ndim != 1 or xc.shape[0] < 2 or not np.all(np.isfinite(xc)):
         return GridInfo("irregular", None)
     xc = xc.astype(np.float64)
@@ -79,3 +93,112 @@ def classify_grid(x, rtol: float = GRID_RTOL,
     if float(np.max(np.abs(off - k * h))) > near_rtol * h:
         return GridInfo("irregular", None)
     return GridInfo("near", h)
+
+
+# ---------------------------------------------------------------------------
+# SKI inducing grids + sparse interpolation weights
+# ---------------------------------------------------------------------------
+
+# Pad cells on each side of the data range so every cubic stencil
+# (j0-1 .. j0+2) stays inside the grid without clamping.
+GRID_MARGIN = 3
+
+# Free-grid (scattered input) density: cells per data point.
+GRID_OVERSAMPLE = 2.0
+
+
+def build_inducing_grid(x, spacing: Optional[float] = None,
+                        n_grid: Optional[int] = None,
+                        margin: int = GRID_MARGIN) -> np.ndarray:
+    """Regular inducing grid covering the range of ``x`` (float64 numpy).
+
+    Spacing: explicit ``spacing``, else ``n_grid`` interior cells, else the
+    :func:`classify_grid` spacing ("exact"/"near" inputs ride their own
+    grid), else span / (GRID_OVERSAMPLE (n - 1)) for scattered data.
+    ``margin`` cells pad each side.
+    """
+    xc = _host(x)
+    if xc.ndim != 1 or xc.shape[0] < 1:
+        raise ValueError("build_inducing_grid needs 1-D x")
+    xc = xc.astype(np.float64)
+    lo, hi = float(np.min(xc)), float(np.max(xc))
+    span = hi - lo
+    n = xc.shape[0]
+    if spacing is None:
+        if n_grid is not None:
+            if n_grid < 2:
+                raise ValueError("n_grid must be >= 2")
+            spacing = (span if span > 0.0 else 1.0) / (n_grid - 1)
+        else:
+            info = classify_grid(xc)
+            if info.h is not None:
+                spacing = info.h
+            elif span > 0.0 and n > 1:
+                spacing = span / (GRID_OVERSAMPLE * (n - 1))
+            else:
+                spacing = 1.0
+    spacing = float(spacing)
+    if spacing <= 0.0:
+        raise ValueError(f"inducing grid spacing must be > 0, got {spacing}")
+    n_interior = int(np.ceil(span / spacing - 1e-9)) + 1
+    m = n_interior + 2 * margin
+    u0 = lo - margin * spacing
+    return u0 + spacing * np.arange(m, dtype=np.float64)
+
+
+def _cubic_weights(s: np.ndarray) -> np.ndarray:
+    """Keys cubic-convolution weights (a = -1/2) for taps at offsets
+    (-1, 0, 1, 2) around the cell fraction s in [0, 1); rows sum to 1."""
+    w = np.empty(s.shape + (4,), np.float64)
+    d = s + 1.0
+    w[..., 0] = ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0
+    d = s
+    w[..., 1] = (1.5 * d - 2.5) * d * d + 1.0
+    d = 1.0 - s
+    w[..., 2] = (1.5 * d - 2.5) * d * d + 1.0
+    d = 2.0 - s
+    w[..., 3] = ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0
+    return w
+
+
+def interp_weights(x, grid, order: str = "cubic"):
+    """Sparse interpolation weights W with k(x) ~ W k(grid), row by row.
+
+    Returns ``(idx, w)``: int32 (n, s) grid indices and float64 (n, s)
+    weights, s = 4 (cubic) or 2 (linear).  Rows sum to 1, and a point on a
+    grid node gets the one-hot row (the snap below), so gappy-grid data
+    makes W a selection matrix.  Raises if a stencil leaves ``grid``.
+    """
+    xc = _host(x).astype(np.float64)
+    gc = _host(grid).astype(np.float64)
+    if gc.ndim != 1 or gc.shape[0] < 4:
+        raise ValueError("inducing grid must be 1-D with >= 4 points")
+    h = grid_spacing(gc)
+    if h is None:
+        raise ValueError("inducing grid must be a regular ascending grid")
+    t = (xc - gc[0]) / h
+    m = gc.shape[0]
+    # every cubic stencil needs t in [1, m-2]; reject before the clip
+    if t.size and (float(np.min(t)) < 1.0 - 1e-9
+                   or float(np.max(t)) > m - 2.0 + 1e-9):
+        raise ValueError("interpolation stencil leaves the inducing grid; "
+                         "build the grid with build_inducing_grid margins")
+    j0 = np.floor(t).astype(np.int64)
+    j0 = np.clip(j0, 1, m - 3)
+    s = t - j0
+    if order == "cubic":
+        offs = np.arange(-1, 3, dtype=np.int64)
+        w = _cubic_weights(s)
+    elif order == "linear":
+        offs = np.arange(0, 2, dtype=np.int64)
+        w = np.stack([1.0 - s, s], axis=-1)
+    else:
+        raise ValueError(f"unknown interpolation order {order!r}; "
+                         "choose 'cubic' or 'linear'")
+    idx = j0[:, None] + offs[None, :]
+    # snap node hits to one-hot rows: gappy-grid W is exactly a selection
+    on_node = np.abs(s) < 1e-9
+    if np.any(on_node):
+        w = np.where(on_node[:, None],
+                     (offs[None, :] == 0).astype(np.float64), w)
+    return idx.astype(np.int32), w

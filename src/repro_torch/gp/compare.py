@@ -3,9 +3,10 @@
 Counterpart of ``repro/gp/compare.py``.  ``compare(specs, x, y, key=...)``
 runs each candidate kernel through bind -> fit -> log_evidence and returns
 the :class:`ModelReport` list.  Only the sequential path is ported: the
-JAX package batches a bank only on exact or near grids (:func:`batchable`),
-which irregular x never is, and a batchable bank raises here instead of
-quietly running one by one.
+JAX package batches a bank on exact or near grids (:func:`batchable`), so
+there ``batch="auto"`` or ``"on"`` raises here (the batched bank comes
+with its own slice) instead of quietly running one by one, and
+``batch="off"`` runs the reference's sequential path on the same data.
 """
 
 from __future__ import annotations

@@ -11,9 +11,10 @@ are immutable: ``fit`` returns a new, fitted session.
     lnz = gp.log_evidence().log_z
     post = gp.predict(xstar)
 
-``device=None`` means the card.  This slice runs the iterative backend on
-the tile operator (irregular 1-D x); everything else raises and names the
-slice that brings it.
+``device=None`` means the card.  The port runs the iterative backend on
+the tile operator (irregular 1-D x), the Toeplitz operator (an exact grid)
+and the SKI operator (a near grid: a gappy record); everything else
+raises and names the slice that brings it.
 """
 
 from __future__ import annotations
@@ -91,7 +92,8 @@ class GP:
         kind = eng.resolve_kind(cov)
         op = kopers.select_operator(kind, x, float(spec.noise.sigma_n),
                                     float(jitter),
-                                    operator=spec.solver.opts.operator)
+                                    operator=spec.solver.opts.operator,
+                                    fused=spec.solver.opts.fused)
         if (spec.solver.backend == "auto" and op.name == "pallas"
                 and n >= STOCHASTIC_AUTO_MIN_N):
             raise _pending.pending(
@@ -208,11 +210,16 @@ class GP:
             **common)
 
     def predict(self, xstar, theta=None, compute_var: bool = True,
-                include_noise: Optional[bool] = None, key=None):
+                include_noise: Optional[bool] = None, key=None,
+                var_chunk: int = 256, cross: str = "interp"):
         """Posterior mean and variance at xstar (eq. 2.1), sigma_f profiled.
 
-        Uses the fitted peak unless ``theta`` overrides; the cross
-        covariance is exact (the tile operator has no grid to interpolate on).
+        Uses the fitted peak unless ``theta`` overrides.  Near-grid (SKI)
+        sessions interpolate the test points onto the same inducing grid
+        (``cross="interp"``, the default), so no (n, n*) block is built;
+        ``cross="exact"`` and the other operators take the exact cross
+        covariance.  The SKI variance solves ``var_chunk`` test points at
+        a time.
         """
         th = theta if theta is not None else self.theta_hat
         inc = (self.spec.noise.include_noise if include_noise is None
@@ -223,4 +230,4 @@ class GP:
             self.spec.noise.sigma_n, include_noise=inc, jitter=self.jitter,
             backend=self.backend, key=_as_key(key),
             solver_opts=self.spec.solver.opts, compute_var=compute_var,
-            op=self.op)
+            op=self.op, var_chunk=var_chunk, cross=cross)

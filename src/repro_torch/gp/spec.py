@@ -15,6 +15,7 @@ from ..core.covariances import Covariance
 from ..core.engine import BACKENDS, SolverOpts
 from ..core.iterative import PRECOND_CHOICES
 from ..core.reparam import FlatBox
+from ..kernels.ski_fused import FUSED_CHOICES
 
 
 class NoiseModel(NamedTuple):
@@ -88,6 +89,10 @@ class GPSpec:
         if pc is not None and pc not in PRECOND_CHOICES:
             raise ValueError(f"unknown preconditioner {pc!r}; choose from "
                              f"{PRECOND_CHOICES} or None")
+        fu = self.solver.opts.fused
+        if fu not in FUSED_CHOICES:
+            raise ValueError(
+                f"unknown fused mode {fu!r}; choose from {FUSED_CHOICES}")
         if self.box is not None and not isinstance(self.box, FlatBox):
             object.__setattr__(self, "box", FlatBox(*self.box))
 

@@ -26,8 +26,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_matrix.cu")
-HEADERS = ("tile_fns.cuh", "tile_sweep.cuh")
+SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_matrix.cu",
+           "ski_gram.cu", "ski_tangent.cu")
+HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "ski_fft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -62,6 +63,7 @@ def _digest() -> str:
 
 _VOID = ctypes.c_void_p
 _INT = ctypes.c_int
+_DOUBLE = ctypes.c_double
 _SIGNATURES = {
     "tile_matvec_max_cols": [_INT],
     "tile_tangent_max_cols": [_INT, _INT],
@@ -70,6 +72,10 @@ _SIGNATURES = {
     "tile_tangent_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
                          _VOID, _INT, _INT, _VOID, _INT, _VOID],
     "tile_matrix_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _VOID],
+    "ski_gram_f64": [_INT] * 5 + [_VOID] * 4 + [_DOUBLE, _VOID, _INT]
+    + [_VOID] * 4,
+    "ski_tangent_f64": [_INT] * 5 + [_VOID] * 4 + [_INT, _VOID, _INT]
+    + [_VOID] * 4,
 }
 for _name in list(_SIGNATURES):
     if _name.endswith("_f64"):
@@ -152,5 +158,5 @@ def dtype_suffix(dtype: torch.dtype) -> str:
         return "f64"
     if dtype == torch.float32:
         return "f32"
-    raise TypeError(f"the CUDA tile kernels take float64 or float32, "
+    raise TypeError(f"the CUDA kernels take float64 or float32, "
                     f"got {dtype}")

@@ -1,28 +1,43 @@
 """Linear operators for the training covariance.
 
-Counterpart of ``repro/kernels/operators.py`` for the structure-free path.
-:class:`PallasTileOperator` (the JAX package's name, kept so the two
-packages report the same operator) binds one (kind, x, sigma_n, jitter)
-training geometry; theta is a per-call argument.  Its gram matvec is the
-B1 kernel plus the noise diagonal, its stacked tangents the B2 kernel.
+Counterpart of ``repro/kernels/operators.py`` for 1-D data.  Each operator
+binds one (kind, x, sigma_n, jitter) training geometry; theta is a
+per-call argument.  Three structures, picked by :func:`select_operator`
+with ``data.grid.classify_grid`` as in the JAX package:
 
-:func:`select_operator` classifies x with ``data.grid.classify_grid`` as
-the JAX package does.  Exact and near grids take the Toeplitz and SKI
-operators there; those are not ported yet, so they raise here rather than
-fall back to the tiles (which would answer differently).
+  * :class:`PallasTileOperator` (the JAX package's name, kept so the two
+    packages report the same operator): irregular x; its gram matvec is
+    the B1 kernel plus the noise diagonal, its stacked tangents B2.
+  * :class:`ToeplitzOperator`: an exact grid; K is symmetric Toeplitz,
+    applied by circulant embedding on ``torch.fft`` (the JAX package
+    computes these FFTs outside any kernel too).
+  * :class:`SKIOperator`: a near grid (a gappy record); K = W K_grid W^T
+    on the recovered inducing grid.  With ``fused`` on, its bound gram
+    matvec is one B5 launch and its stacked tangents one B6 launch
+    (:mod:`.ski_fused`); otherwise the gather -> FFT -> scatter
+    composition.
+
+Each operator also carries the preconditioner hooks that
+``core.iterative.make_preconditioner`` reads: ``circulant_precond`` (the
+structure's Strang-type FFT apply) and, where the structure has one,
+``slq_precond`` (the accessors of preconditioned SLQ).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from .. import _pending
-from ..data.grid import GRID_RTOL, classify_grid
+from .. import random as rnd
+from ..data.grid import (GRID_RTOL, build_inducing_grid, classify_grid,
+                         interp_weights, is_regular_grid)
 from . import ops as kops
-from .ref import tile
-
+from . import ski_fused
+from .ref import tile, tile_grad
+from .ski_fused import interp_gather, interp_scatter
 
 @runtime_checkable
 class LinearOperator(Protocol):
@@ -54,6 +69,38 @@ def bound_gram_matvec(op, theta, dtype):
     return lambda v: op.gram_matvec(theta, v)
 
 
+def _column(kind: str, theta, dt):
+    """k(dt) for a separation vector dt, one closed-form evaluation."""
+    p = kops.natural_params(kind, theta).to(dt.dtype)
+    return tile(kind, dt, p)
+
+
+def _column_jacobian(kind: str, theta, dt):
+    """(m, len(dt)): row i is d k(dt) / d theta_i.
+
+    The closed form of the forward-mode Jacobian of :func:`_column`: the
+    natural-slot gradients of the tile contracted with the natural
+    tangents of the flat coordinates (the same Jacobian feeds B6).
+    """
+    p = kops.natural_params(kind, theta).to(dt.dtype)
+    _, g = tile_grad(kind, dt, p)                     # (len(dt), ns)
+    pdots = kops.natural_tangents(kind, theta).to(dt.dtype)
+    return torch.einsum("ns,ms->mn", g, pdots[:, :g.shape[-1]])
+
+
+def _mean_spacing_column(kind: str, theta, x, n: int):
+    """Stand-in Toeplitz first column k(hbar * arange(n)) at the mean data
+    spacing: the circulant preconditioner's model of near-uniform
+    sampling (exact on grids, an approximation off them)."""
+    hbar = (x[-1] - x[0]) / max(n - 1, 1)
+    return _column(kind, theta, hbar * torch.arange(n, dtype=x.dtype,
+                                                     device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# General path: tiles
+# ---------------------------------------------------------------------------
+
 class PallasTileOperator:
     """The general path: K generated tile by tile, never stored; any 1-D x."""
 
@@ -84,39 +131,527 @@ class PallasTileOperator:
 
     def diag(self, theta):
         """Noise-free diagonal k(x, x) (unit-scale kernels: all ones)."""
-        p = kops.natural_params(self.kind, theta).to(self.x.dtype)
-        return tile(self.kind, torch.zeros_like(self.x), p)
+        return _column(self.kind, theta, torch.zeros_like(self.x))
 
     def matcol(self, theta, i: int):
         """Column k(x, x_i)."""
-        p = kops.natural_params(self.kind, theta).to(self.x.dtype)
-        return tile(self.kind, self.x - self.x[i], p)
+        return _column(self.kind, theta, self.x - self.x[i])
+
+    def circulant_precond(self, theta, floor: float = 1e-12):
+        """Circulant apply from the mean-spacing stand-in column: a model
+        of near-uniform sampling, of little use on scattered x."""
+        return _circulant_inverse_apply(
+            _mean_spacing_column(self.kind, theta, self.x, self.n),
+            self.noise2, floor)
 
 
-OPERATORS = ("pallas", "toeplitz", "ski", "lowrank")
+# ---------------------------------------------------------------------------
+# Gridded path: symmetric Toeplitz via circulant embedding + real FFT
+# ---------------------------------------------------------------------------
+
+def _embed(t):
+    """First column (..., n) -> circulant generator (..., 2n-2):
+    [t_0 .. t_{n-1}, t_{n-2} .. t_1]."""
+    return torch.cat([t, torch.flip(t[..., 1:t.shape[-1] - 1], dims=(-1,))],
+                     dim=-1)
+
+
+def _pad_rows(v, L: int):
+    """(n, b) -> (L, b), zero rows below."""
+    return torch.cat([v, v.new_zeros((L - v.shape[0],) + tuple(v.shape[1:]))])
+
+
+def _toeplitz_matvec(t, v):
+    """Symmetric-Toeplitz matvec: t (n,) first column, v (n, b) -> (n, b)."""
+    n = t.shape[0]
+    L = 2 * n - 2
+    w = torch.fft.irfft(torch.fft.rfft(_embed(t))[:, None]
+                        * torch.fft.rfft(_pad_rows(v, L), dim=0), n=L, dim=0)
+    return w[:n].to(v.dtype)
+
+
+def _toeplitz_matvec_stacked(T, v):
+    """m first columns at once: T (m, n), v (n, b) -> (m, n, b); one rfft
+    of v serves all m spectra."""
+    n = v.shape[0]
+    L = 2 * n - 2
+    vhat = torch.fft.rfft(_pad_rows(v, L), dim=0)            # (Lf, b)
+    chat = torch.fft.rfft(_embed(T), dim=-1)                 # (m, Lf)
+    w = torch.fft.irfft(chat[:, :, None] * vhat[None], n=L, dim=1)
+    return w[:, :n].to(v.dtype)
+
+
+def _circulant_inverse_apply(t, noise2: float, floor: float = 1e-12):
+    """r -> E^T (C_+ + noise2 I)^{-1} E r from the 2n-2 embedding of t.
+
+    The Strang-type circulant-preconditioner apply shared by every
+    operator's ``circulant_precond``: the real embedding spectrum clipped
+    positive at ``floor * max|lambda|`` plus the noise, applied by padding
+    to 2n-2, one rfft, a divide, irfft and truncation.
+    """
+    n = t.shape[0]
+    if n < 2:
+        return lambda r: r / (t[0] + noise2)
+    L = 2 * n - 2
+    lam = torch.fft.rfft(_embed(t)).real
+    lam = torch.maximum(lam, floor * torch.max(torch.abs(lam))) + noise2
+
+    def apply(r):
+        squeeze = r.ndim == 1
+        if squeeze:
+            r = r[:, None]
+        u = torch.fft.irfft(torch.fft.rfft(_pad_rows(r, L), dim=0)
+                            / lam[:, None], n=L, dim=0)[:n].to(r.dtype)
+        return u[:, 0] if squeeze else u
+
+    return apply
+
+
+class SLQPrecond:
+    """What preconditioned SLQ needs from its P ~ K: ``apply_inv``
+    (r -> P^{-1} r), ``sample`` ((key, p) -> (n, p) probes with
+    E[z z^T] = P) and the exact ``logdet`` of P."""
+
+    def __init__(self, apply_inv, sample, logdet):
+        self.apply_inv = apply_inv
+        self.sample = sample
+        self.logdet = logdet
+
+
+def _strang_spectrum(t, noise2: float, floor: float = 1e-12):
+    """Real eigenvalues of the n x n Strang circulant of first column t
+    (c[j] = t[j] for j <= n/2, t[n-j] beyond), clipped positive like the
+    embedding preconditioner, plus the noise."""
+    n = t.shape[0]
+    j = torch.arange(n, device=t.device)
+    c = torch.where(j <= n // 2, t[torch.clamp(j, max=n - 1)],
+                    t[(n - j) % n])
+    lam = torch.fft.fft(c).real
+    lam = torch.maximum(lam, floor * torch.max(torch.abs(lam)))
+    return lam + noise2
+
+
+def strang_slq_precond(t, noise2: float, floor: float = 1e-12
+                       ) -> SLQPrecond:
+    """:class:`SLQPrecond` of the n x n Strang circulant of ``t``: every
+    access is one length-n FFT pair; ln det P = sum ln lambda exactly."""
+    lam = _strang_spectrum(t, noise2, floor)
+    n = lam.shape[0]
+    sq = torch.sqrt(lam)
+
+    def apply_inv(r):
+        return torch.fft.ifft(torch.fft.fft(r, dim=0) / lam[:, None],
+                              dim=0).real.to(r.dtype)
+
+    def sample(key, p):
+        g = rnd.normal(key, (n, p), device=lam.device, dtype=lam.dtype)
+        return torch.fft.ifft(torch.fft.fft(g, dim=0) * sq[:, None],
+                              dim=0).real
+
+    return SLQPrecond(apply_inv, sample, torch.sum(torch.log(lam)))
+
+
+# Cap on the missing-cell block of the gappy SLQ preconditioner: the
+# correction is a g x g Cholesky (g = dropped cells), cubic in g.
+_GAPPY_SLQ_MAX_MISS = 4096
+
+
+def masked_circulant_slq_precond(lam, occ,
+                                 max_miss: int = _GAPPY_SLQ_MAX_MISS
+                                 ) -> Optional[SLQPrecond]:
+    """Determinant-corrected SLQ preconditioner P = M[occ, occ] for gappy
+    grids: M the circulant-plus-noise of spectrum ``lam`` (noise folded
+    in) over the full m-cell grid, ``occ`` the n occupied cells.
+
+    All three accessors are exact through the g = m - n missing cells:
+    with G = M^{-1}[miss, miss], P^{-1} r = (M^{-1} r~)[occ] minus
+    (M^{-1} [0; G^{-1} (M^{-1} r~)[miss]])[occ]; a sample of M^{1/2} g
+    restricted to occ has covariance P; ln det P = sum ln lambda +
+    2 sum ln diag chol(G).  Returns None when g exceeds ``max_miss`` or
+    occ has duplicates.
+    """
+    m = int(lam.shape[0])
+    dev = lam.device
+
+    def conv_inv(R):
+        return torch.fft.ifft(torch.fft.fft(R, dim=0) / lam[:, None],
+                              dim=0).real
+
+    sq = torch.sqrt(lam)
+    logdet = torch.sum(torch.log(lam))
+    occ_np = np.asarray(occ, np.int64).ravel()
+    if np.unique(occ_np).size != occ_np.size:
+        return None
+    miss_np = np.setdiff1d(np.arange(m, dtype=np.int64), occ_np)
+    g = int(miss_np.size)
+    if g > max_miss:
+        return None
+    if g:
+        # G[i, j] = q[(miss_i - miss_j) mod m], q the first column of
+        # M^{-1} (a circulant inverse is circulant)
+        diff = (miss_np[:, None] - miss_np[None, :]) % m
+        q = torch.fft.ifft(1.0 / lam).real
+        G = q[torch.as_tensor(diff, device=dev)]
+        Lg, info = torch.linalg.cholesky_ex(G)
+        # jnp.linalg.cholesky gives nan where torch's raises: let it flow
+        Lg = torch.where(info == 0, Lg, torch.full_like(Lg, torch.nan))
+        logdet = logdet + 2.0 * torch.sum(torch.log(torch.diagonal(Lg)))
+        miss_t = torch.as_tensor(miss_np, device=dev)
+    occ_t = torch.as_tensor(occ_np, device=dev)
+
+    def apply_inv(r):
+        squeeze = r.ndim == 1
+        rb = r[:, None] if squeeze else r
+        rt = lam.new_zeros((m, rb.shape[1]))
+        rt[occ_t] = rb.to(lam.dtype)
+        u = conv_inv(rt)
+        if g:
+            tcor = torch.cholesky_solve(u[miss_t], Lg, upper=False)
+            tt = lam.new_zeros((m, rb.shape[1]))
+            tt[miss_t] = tcor
+            u = u - conv_inv(tt)
+        out = u[occ_t].to(r.dtype)
+        return out[:, 0] if squeeze else out
+
+    def sample(key, p):
+        gg = rnd.normal(key, (m, p), device=dev, dtype=lam.dtype)
+        z = torch.fft.ifft(torch.fft.fft(gg, dim=0) * sq[:, None],
+                           dim=0).real
+        return z[occ_t]
+
+    return SLQPrecond(apply_inv, sample, logdet)
+
+
+class ToeplitzOperator:
+    """O(n log n) gram/tangent matvecs for stationary kernels on a grid.
+
+    x must be strictly ascending and uniformly spaced; the whole matrix is
+    its first column k(x - x[0]).
+    """
+
+    name = "toeplitz"
+
+    def __init__(self, kind: str, x, sigma_n: float = 0.0,
+                 jitter: float = 0.0, rtol: float = GRID_RTOL):
+        kops.check_kind(kind)
+        if not is_regular_grid(x, rtol=rtol):
+            raise ValueError(
+                "ToeplitzOperator needs a strictly ascending, uniformly "
+                "spaced 1-D x (data.grid.is_regular_grid); use the "
+                "'pallas' operator for irregular inputs")
+        self.kind = kind
+        self.x = x
+        self.n = int(x.shape[0])
+        self.sigma_n = float(sigma_n)
+        self.jitter = float(jitter)
+        self.noise2 = float(sigma_n) ** 2 + float(jitter)
+        self._dt0 = x - x[0]                 # separations of column 0
+
+    def first_column(self, theta, dtype=None):
+        """k(x - x[0]): the n numbers that define the whole matrix."""
+        dtype = self._dt0.dtype if dtype is None else dtype
+        return _column(self.kind, theta, self._dt0.to(dtype))
+
+    def first_column_jacobian(self, theta, dtype=None):
+        """(m, n): row i is d first_column / d theta_i."""
+        dtype = self._dt0.dtype if dtype is None else dtype
+        return _column_jacobian(self.kind, theta, self._dt0.to(dtype))
+
+    def matvec(self, theta, v):
+        squeeze = v.ndim == 1
+        if squeeze:
+            v = v[:, None]
+        out = _toeplitz_matvec(self.first_column(theta, v.dtype), v)
+        return out[:, 0] if squeeze else out
+
+    def gram_matvec(self, theta, v):
+        return self.matvec(theta, v) + self.noise2 * v
+
+    def tangent_matvecs(self, theta, V):
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        rows = self.first_column_jacobian(theta, V.dtype)     # (m, n)
+        out = _toeplitz_matvec_stacked(rows, V)               # (m, n, b)
+        return out[:, :, 0] if squeeze else out
+
+    def circulant_precond(self, theta, floor: float = 1e-12):
+        """Circulant apply from the exact first column."""
+        return _circulant_inverse_apply(self.first_column(theta),
+                                        self.noise2, floor)
+
+    def bound_gram_matvec(self, theta, dtype):
+        """Per-theta bound apply: the embedding spectrum is computed here,
+        once; each call is then one rfft/irfft pair."""
+        lam = torch.fft.rfft(_embed(self.first_column(theta, dtype)))
+        n, L = self.n, 2 * self.n - 2
+        noise2 = self.noise2
+
+        def mv(v):
+            squeeze = v.ndim == 1
+            if squeeze:
+                v = v[:, None]
+            out = torch.fft.irfft(lam[:, None]
+                                  * torch.fft.rfft(_pad_rows(v, L), dim=0),
+                                  n=L, dim=0)[:n].to(v.dtype)
+            out = out + noise2 * v
+            return out[:, 0] if squeeze else out
+
+        return mv
+
+    def slq_precond(self, theta, floor: float = 1e-12) -> SLQPrecond:
+        """Preconditioned-SLQ accessors from the n x n Strang circulant of
+        the exact first column."""
+        return strang_slq_precond(self.first_column(theta), self.noise2,
+                                  floor)
+
+
+# ---------------------------------------------------------------------------
+# Near-grid path: structured kernel interpolation (SKI)
+# ---------------------------------------------------------------------------
+
+def _selection_cells(idx, w) -> Optional[np.ndarray]:
+    """Grid cells of a selection-matrix W, or None if W is not one: every
+    row has exactly one nonzero weight, equal to 1 (interp_weights snaps
+    on-node rows), on distinct cells."""
+    w_np = np.asarray(w)
+    idx_np = np.asarray(idx)
+    hot = w_np == 1.0
+    if not (np.count_nonzero(hot, axis=1) == 1).all():
+        return None
+    if not (np.count_nonzero(w_np, axis=1) == 1).all():
+        return None
+    cells = idx_np[np.arange(idx_np.shape[0]), np.argmax(hot, axis=1)]
+    if np.unique(cells).size != cells.size:
+        return None
+    return cells.astype(np.int64)
+
+
+class SKIOperator:
+    """K ~ W K_grid W^T: the Toeplitz/FFT path for near-grid inputs.
+
+    A regular inducing grid spans the data (``data.grid.
+    build_inducing_grid``) and each point interpolates from its s = 4
+    (cubic) or 2 (linear) nearest nodes (``data.grid.interp_weights``);
+    W is stored as (n, s) index/weight arrays.  A point on a node gets a
+    one-hot row, so a gappy record makes W a selection matrix and the
+    surrogate exact.
+
+    ``fused`` ("auto", True or False; :func:`ski_fused.resolve_fused`):
+    on, the bound gram matvec is one B5 launch and the stacked tangents
+    one B6 launch; off, the gather -> FFT -> scatter composition.
+    """
+
+    name = "ski"
+
+    def __init__(self, kind: str, x, sigma_n: float = 0.0,
+                 jitter: float = 0.0, spacing: Optional[float] = None,
+                 order: str = "cubic", fused="auto"):
+        kops.check_kind(kind)
+        grid = build_inducing_grid(x, spacing=spacing)
+        idx, w = interp_weights(x, grid, order=order)
+        self.kind = kind
+        self.x = x
+        self.n = int(x.shape[0])
+        self.order = order
+        self.sigma_n = float(sigma_n)
+        self.jitter = float(jitter)
+        self.noise2 = float(sigma_n) ** 2 + float(jitter)
+        # the grid stays float64 (a float32 round trip could push it past
+        # the regularity tolerance); per-call dtypes follow v
+        self._toep = ToeplitzOperator(
+            kind, torch.as_tensor(np.asarray(grid, np.float64),
+                                  dtype=torch.float64, device=x.device))
+        self.grid = self._toep.x
+        self.m_grid = int(self.grid.shape[0])
+        self.idx = torch.as_tensor(idx, dtype=torch.int64, device=x.device)
+        self.w = torch.as_tensor(w, dtype=x.dtype, device=x.device)
+        self.fused_geom = ski_fused.build_fused_geometry(idx, w, self.m_grid)
+        self.fused = ski_fused.resolve_fused(fused, self.fused_geom)
+        # a gappy record (W a selection matrix) unlocks the
+        # determinant-corrected SLQ preconditioner; jitter leaves None
+        self._sel_cells = _selection_cells(idx, w)
+
+    def _W(self, u):
+        """(m_grid, b) -> (n, b): gather s nodes per row, weight, sum."""
+        return interp_gather(self.idx, self.w, u)
+
+    def _Wt(self, v):
+        """(n, b) -> (m_grid, b): scatter-add each point into its nodes."""
+        return interp_scatter(self.idx, self.w, self.m_grid, v)
+
+    def matvec(self, theta, v):
+        squeeze = v.ndim == 1
+        if squeeze:
+            v = v[:, None]
+        out = self._W(self._toep.matvec(theta, self._Wt(v)))
+        return out[:, 0] if squeeze else out
+
+    def gram_matvec(self, theta, v):
+        if self.fused:
+            squeeze = v.ndim == 1
+            if squeeze:
+                v = v[:, None]
+            out = self.bound_gram_matvec(theta, v.dtype)(v.contiguous())
+            return out[:, 0] if squeeze else out
+        return self.matvec(theta, v) + self.noise2 * v
+
+    def bound_gram_matvec(self, theta, dtype):
+        """Per-theta bound training matvec, the CG/Lanczos hot-loop apply.
+
+        Fused: the spectrum is built here, once, and every call is one B5
+        launch.  Unfused: the inner Toeplitz spectrum is hoisted and each
+        call is the gather -> FFT pair -> scatter composition.
+        """
+        if self.fused:
+            lam = ski_fused.spectrum(self._toep.first_column(theta, dtype),
+                                     self.fused_geom)
+            geom, noise2 = self.fused_geom, self.noise2
+
+            def mv(v):
+                squeeze = v.ndim == 1
+                if squeeze:
+                    v = v[:, None]
+                out = ski_fused.fused_gram_matvec(geom, lam, noise2,
+                                                  v.contiguous())
+                return out[:, 0] if squeeze else out
+
+            return mv
+        inner = self._toep.bound_gram_matvec(theta, dtype)
+        noise2 = self.noise2       # the grid operator carries no noise
+
+        def mv(v):
+            return self._W(inner(self._Wt(v))) + noise2 * v
+
+        return mv
+
+    def tangent_matvecs(self, theta, V):
+        """dK/dtheta_i @ V = W (dK_grid/dtheta_i) W^T V: one B6 launch when
+        fused (shared W^T and forward FFT), else the stacked Toeplitz
+        tangents between the W applications."""
+        squeeze = V.ndim == 1
+        if squeeze:
+            V = V[:, None]
+        if self.fused:
+            rows = self._toep.first_column_jacobian(theta, V.dtype)
+            lams = ski_fused.spectrum(rows, self.fused_geom)  # (m, L)
+            out = ski_fused.fused_tangent_matvecs(self.fused_geom, lams,
+                                                  V.contiguous())
+        else:
+            T = self._toep.tangent_matvecs(theta, self._Wt(V))
+            out = torch.stack([self._W(Ti) for Ti in T])      # (m, n, b)
+        return out[:, :, 0] if squeeze else out
+
+    # -- cross-covariance on the same inducing grid (predict)
+
+    def cross_interp(self, xstar):
+        """``(idx*, w*)``, the sparse rows of W* with k(x*, x) ~ W* K_grid
+        W^T, or None when a stencil of ``xstar`` leaves the grid (callers
+        then take the exact cross covariance)."""
+        try:
+            idx, w = interp_weights(xstar, self.grid, order=self.order)
+        except ValueError:
+            return None
+        return (torch.as_tensor(idx, dtype=torch.int64, device=self.x.device),
+                torch.as_tensor(w, dtype=self.x.dtype, device=self.x.device))
+
+    def cross_matvec(self, theta, xstar_interp, v):
+        """k(x*, x) @ v ~ W* K_grid (W^T v): two sparse applications around
+        one grid Toeplitz FFT."""
+        idx_s, w_s = xstar_interp
+        squeeze = v.ndim == 1
+        if squeeze:
+            v = v[:, None]
+        u = self._toep.matvec(theta, self._Wt(v))           # (m_grid, b)
+        out = interp_gather(idx_s, w_s, u)
+        return out[:, 0] if squeeze else out
+
+    def cross_columns(self, theta, xstar_interp):
+        """Cross block k(x, x*) ~ W K_grid W*^T for a chunk of test
+        points, (n, c), by scatter -> stacked grid FFT -> gather."""
+        idx_s, w_s = xstar_interp                           # (c, s)
+        c = idx_s.shape[0]
+        cols = torch.arange(c, device=idx_s.device)[:, None].expand_as(idx_s)
+        wst = self.w.new_zeros((self.m_grid, c))
+        wst.index_put_((idx_s, cols), w_s.to(wst.dtype), accumulate=True)
+        return self._W(self._toep.matvec(theta, wst))       # (n, c)
+
+    # -- preconditioner hooks
+
+    def circulant_precond(self, theta, floor: float = 1e-12):
+        """Grid-space circulant sandwich W E^T (C_+ + noise2)^{-1} E W^T:
+        scatter, divide by the exact K_grid embedding spectrum, gather."""
+        Q = _circulant_inverse_apply(
+            self._toep.first_column(theta, self.x.dtype), self.noise2,
+            floor)
+
+        def apply(r):
+            squeeze = r.ndim == 1
+            if squeeze:
+                r = r[:, None]
+            out = self._W(Q(self._Wt(r)))
+            return out[:, 0] if squeeze else out
+
+        return apply
+
+    def slq_precond(self, theta,
+                    floor: float = 1e-12) -> Optional[SLQPrecond]:
+        """Determinant-corrected SLQ preconditioner for gappy records (W a
+        selection matrix): P = M[occ, occ] with M the m-cell Strang
+        circulant plus noise.  Jittered samplings return None and take
+        plain SLQ."""
+        if self._sel_cells is None:
+            return None
+        lam = _strang_spectrum(self._toep.first_column(theta), self.noise2,
+                               floor)
+        return masked_circulant_slq_precond(lam, self._sel_cells)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+OPERATORS = {
+    PallasTileOperator.name: PallasTileOperator,
+    ToeplitzOperator.name: ToeplitzOperator,
+    SKIOperator.name: SKIOperator,
+}
+
+
+def make_operator(name: str, kind: str, x, sigma_n: float = 0.0,
+                  jitter: float = 0.0, **kwargs):
+    """Construct a registered operator by name (no structure detection)."""
+    if name == "lowrank":
+        raise _pending.pending(f"operator {name!r}", _pending.PIVCHOL)
+    try:
+        cls = OPERATORS[name]
+    except KeyError:
+        raise ValueError(f"unknown operator {name!r}; registered: "
+                         f"{sorted(OPERATORS) + ['lowrank']}") from None
+    return cls(kind, x, sigma_n, jitter, **kwargs)
 
 
 def select_operator(kind: str, x, sigma_n: float = 0.0, jitter: float = 0.0,
                     operator: Optional[str] = None,
-                    rtol: float = GRID_RTOL) -> PallasTileOperator:
-    """Structure-aware dispatch; only the "irregular" branch is ported."""
+                    rtol: float = GRID_RTOL, fused="auto"):
+    """Structure-aware dispatch, as in the JAX package.
+
+    An explicit ``operator`` name wins.  Otherwise ``classify_grid``
+    decides: "exact" -> :class:`ToeplitzOperator`, "near" ->
+    :class:`SKIOperator` on the recovered grid, "irregular" ->
+    :class:`PallasTileOperator`.
+    """
     kops.check_kind(kind)
     if operator is not None:
-        if operator == PallasTileOperator.name:
-            return PallasTileOperator(kind, x, sigma_n, jitter)
-        if operator in OPERATORS:
-            raise _pending.pending(f"operator {operator!r}",
-                                   _pending.PIVCHOL if operator == "lowrank"
-                                   else _pending.GRID)
-        raise ValueError(f"unknown operator {operator!r}; registered: "
-                         f"{sorted(OPERATORS)}")
+        kwargs = {"fused": fused} if operator == SKIOperator.name else {}
+        return make_operator(operator, kind, x, sigma_n, jitter, **kwargs)
     if x.ndim != 1:
         raise ValueError(f"plain kind {kind!r} needs 1-D coordinates, got "
                          f"shape {tuple(x.shape)}")
     info = classify_grid(x, rtol=rtol)
-    if info.kind != "irregular":
-        raise _pending.pending(
-            f"x classified {info.kind!r} by classify_grid (the "
-            f"{'Toeplitz' if info.kind == 'exact' else 'SKI'} operator)",
-            _pending.GRID)
+    if info.kind == "exact":
+        return ToeplitzOperator(kind, x, sigma_n, jitter, rtol=rtol)
+    if info.kind == "near":
+        return SKIOperator(kind, x, sigma_n, jitter, spacing=info.h,
+                           fused=fused)
     return PallasTileOperator(kind, x, sigma_n, jitter)

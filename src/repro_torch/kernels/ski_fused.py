@@ -1,0 +1,270 @@
+"""The fused SKI sandwich: B5 (gram) and B6 (stacked tangents).
+
+Counterparts of ``fused_gram_matvec`` and ``fused_tangent_matvecs`` in
+``repro/kernels/ski_fused.py``.  On near-grid data every point sits in a
+distinct cell of the inducing grid, so W and W^T are banded maps around
+one row gather (``occ``: cell -> point row, ``cell``: point -> cell):
+
+    (W K_grid W^T + noise2 I) v = W irfft(lam * rfft(pad(W^T v))) + noise2 v
+
+with lam the real spectrum of the grid covariance's circulant embedding
+(length L, a power of two >= 2 m_grid - 1; the filler between the two
+mirrored halves is don't-care).  The CUDA kernels (``csrc/ski_gram.cu``,
+``csrc/ski_tangent.cu``, FFT in ``csrc/ski_fft.cuh``) do the whole
+sandwich with a hand-written FFT; see ``csrc/ski_fft.cuh`` for the design
+and what bounds it on an H100.  The spectrum is built outside the kernel
+(:func:`spectrum`), once per theta and solve, on ``torch.fft``; natural
+frequency order, so nothing is permuted.
+
+Each wrapper takes its plain PyTorch version when, and only when, the
+tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
+The plain versions are the unfused composition on ``torch.fft``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+# Accepted SolverOpts(fused=...) values.
+FUSED_CHOICES = (True, False, "auto")
+
+
+# ---------------------------------------------------------------------------
+# The sparse interpolation applications (shared with the operators)
+# ---------------------------------------------------------------------------
+
+def interp_gather(idx, w, U):
+    """W u: (m_grid, ...) -> (n, ...); idx/w the (n, s) rows of W."""
+    w = w.to(U.dtype).reshape(w.shape + (1,) * (U.ndim - 1))
+    return torch.sum(w * U[idx], dim=1)
+
+
+def interp_scatter(idx, w, m_grid: int, V):
+    """W^T v: (n, ...) -> (m_grid, ...), a scatter-add of each point's s
+    weighted nodes (``index_add_``)."""
+    w = w.to(V.dtype).reshape(w.shape + (1,) * (V.ndim - 1))
+    contrib = (w * V[:, None]).reshape((-1,) + tuple(V.shape[1:]))
+    out = V.new_zeros((m_grid,) + tuple(V.shape[1:]))
+    return out.index_add_(0, idx.reshape(-1), contrib)
+
+
+# ---------------------------------------------------------------------------
+# Geometry, built host-side once per operator
+# ---------------------------------------------------------------------------
+
+def embed_length(m: int) -> int:
+    """The FFT length: the smallest power of two >= 2 m - 1."""
+    return 1 << max(2 * int(m) - 2, 1).bit_length()
+
+
+class FusedSKIGeometry:
+    """Constants of the fused sandwich for one (x, grid, W).
+
+    occ:   (m_grid,) int32, cell -> data row (n marks an empty cell).
+    wcell: (m_grid, s) float64, the occupying point's stencil weights
+           (zero rows for empty cells).
+    cell:  (n,) int32, data row -> its distinct grid cell.
+    offs:  the stencil offsets d (consecutive): nodes touched are cell + d.
+    L:     the FFT length (power of two >= 2 m_grid - 1).
+    idx, w: the (n, s) rows of W, for the plain versions.
+    """
+
+    def __init__(self, n, m_grid, occ, wcell, cell, offs, L, idx, w):
+        self.n = int(n)
+        self.m_grid = int(m_grid)
+        self.occ = occ
+        self.wcell = wcell
+        self.cell = cell
+        self.offs = tuple(int(d) for d in offs)
+        self.L = int(L)
+        self.idx = idx
+        self.w = w
+        self._tensors = {}
+
+    def tensors(self, device, dtype) -> dict:
+        """The constants as tensors on ``device`` (weights in ``dtype``),
+        made once per (device, dtype)."""
+        key = (torch.device(device), dtype)
+        if key not in self._tensors:
+            dev = key[0]
+            self._tensors[key] = dict(
+                occ=torch.as_tensor(self.occ, dtype=torch.int32, device=dev),
+                wcell=torch.as_tensor(self.wcell, dtype=dtype, device=dev),
+                cell=torch.as_tensor(self.cell, dtype=torch.int32,
+                                     device=dev),
+                idx=torch.as_tensor(self.idx, dtype=torch.int64, device=dev),
+                w=torch.as_tensor(self.w, dtype=dtype, device=dev))
+        return self._tensors[key]
+
+
+def build_fused_geometry(idx, w, m_grid: int) -> Optional[FusedSKIGeometry]:
+    """Fused-kernel constants from the (idx, w) of ``interp_weights``, or
+    None when the geometry is not distinct-cell banded (then only the
+    unfused composition applies)."""
+    idx = np.asarray(idx)
+    w = np.asarray(w, np.float64)
+    n, s = idx.shape
+    center = 1 if s == 4 else 0            # cubic taps -1..2, linear 0..1
+    cell = idx[:, center].astype(np.int64)
+    offs = idx[0] - cell[0]
+    if not np.all(idx == cell[:, None] + offs[None, :]):
+        return None                        # non-stencil rows
+    if not np.array_equal(offs, offs[0] + np.arange(s)):
+        return None                        # the kernels take d0 .. d0+s-1
+    if np.unique(cell).shape[0] != n:
+        return None                        # duplicate cells (not near-grid)
+    occ = np.full(m_grid, n, np.int32)
+    occ[cell] = np.arange(n, dtype=np.int32)
+    wcell = np.zeros((m_grid, s), np.float64)
+    wcell[cell] = w
+    return FusedSKIGeometry(n, m_grid, occ, wcell, cell.astype(np.int32),
+                            offs, embed_length(m_grid), idx, w)
+
+
+def resolve_fused(fused, geom: Optional[FusedSKIGeometry]) -> bool:
+    """SolverOpts(fused=...) -> bool for one bound operator.
+
+    ``True`` demands the kernel (ValueError if the geometry cannot take
+    it); ``False`` takes the unfused composition; ``"auto"`` takes the
+    kernel whenever the geometry is distinct-cell.  The JAX package's
+    interpret-mode size crossover and VMEM budget were measured for
+    another machine and are not carried over.
+    """
+    if fused not in FUSED_CHOICES:
+        raise ValueError(f"unknown fused mode {fused!r}; choose from "
+                         f"{FUSED_CHOICES}")
+    if fused is False:
+        return False
+    if geom is None:
+        if fused is True:
+            raise ValueError(
+                "fused=True but the SKI interpolation geometry is not "
+                "distinct-cell banded (points share inducing cells: an "
+                "operator='ski' override on scattered data?); use "
+                "fused='auto' or False to take the unfused composition")
+        return False
+    return True
+
+
+def spectrum(first_column, geom: FusedSKIGeometry):
+    """1/L-normalised real circulant spectrum of grid first column(s).
+
+    ``first_column`` (..., m_grid) -> (..., L): the symmetric embedding
+    [t_0 .. t_{m-1}, 0 .., t_{m-1} .. t_1] padded to L, its FFT's real
+    part over L (the kernels' inverse transform is un-normalised).
+    """
+    t = first_column
+    m, L = geom.m_grid, geom.L
+    c = t.new_zeros(t.shape[:-1] + (L,))
+    c[..., :m] = t
+    c[..., L - m + 1:] = torch.flip(t[..., 1:], dims=(-1,))
+    return torch.fft.fft(c, dim=-1).real / L
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the unfused composition
+# ---------------------------------------------------------------------------
+
+def _grid_conv_plain(geom, lam, u):
+    """irfft(lam * rfft(pad(u))) rows < m_grid, u (m_grid, b)."""
+    L, m = geom.L, geom.m_grid
+    uh = torch.fft.rfft(u, n=L, dim=0)
+    return torch.fft.irfft(lam[: L // 2 + 1, None] * uh, n=L, dim=0,
+                           norm="forward")[:m]
+
+
+def fused_gram_matvec_plain(geom: FusedSKIGeometry, lam, noise2: float, v):
+    """W irfft(lam * rfft(pad(W^T v))) + noise2 v on ``torch.fft``."""
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
+    ku = _grid_conv_plain(geom, lam, u)
+    return interp_gather(t["idx"], t["w"], ku) + noise2 * v
+
+
+def fused_tangent_matvecs_plain(geom: FusedSKIGeometry, lams, v):
+    """W irfft(lams[i] * rfft(pad(W^T v))) for every direction i."""
+    t = geom.tensors(v.device, v.dtype)
+    L, m = geom.L, geom.m_grid
+    uh = torch.fft.rfft(interp_scatter(t["idx"], t["w"], m, v), n=L, dim=0)
+    out = [interp_gather(t["idx"], t["w"], torch.fft.irfft(
+        lam[: L // 2 + 1, None] * uh, n=L, dim=0, norm="forward")[:m])
+        for lam in lams]
+    return torch.stack(out) if out else v.new_zeros((0,) + tuple(v.shape))
+
+
+# ---------------------------------------------------------------------------
+# B5 / B6 wrappers
+# ---------------------------------------------------------------------------
+
+def _check(geom: FusedSKIGeometry, lams, v):
+    """Validate a wrapper's inputs; returns the device they lie on."""
+    if v.ndim != 2 or v.shape[0] != geom.n:
+        raise ValueError(f"v must be (n, b) with n = {geom.n}, got "
+                         f"{tuple(v.shape)}")
+    if lams.ndim != 2 or lams.shape[1] != geom.L:
+        raise ValueError(f"spectra must be (m_dirs, {geom.L}), got "
+                         f"{tuple(lams.shape)}")
+    if v.device != lams.device:
+        raise ValueError(f"v and the spectrum must be on one device, got "
+                         f"{v.device} and {lams.device}")
+    if v.dtype != lams.dtype:
+        raise TypeError(f"v and the spectrum must share one dtype, got "
+                        f"{v.dtype} and {lams.dtype}")
+    if not (v.is_contiguous() and lams.is_contiguous()):
+        raise ValueError("v and the spectrum must be contiguous")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {v.device}")
+    return v.device
+
+
+def fused_gram_matvec(geom: FusedSKIGeometry, lam, noise2: float, v):
+    """B5: (W K_grid W^T + noise2 I) v, v (n, b) -> (n, b), one launch.
+
+    ``lam`` is the (L,) spectrum from :func:`spectrum`.
+    """
+    dev = _check(geom, lam[None], v)
+    if dev.type == "cpu":
+        return fused_gram_matvec_plain(geom, lam, noise2, v)
+    return _launch("ski_gram", geom, lam[None], noise2, v)[0]
+
+
+def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
+    """B6: W (dK_grid/dtheta_i) W^T v for all m_dirs directions, one
+    launch: (m_dirs, n, b).  ``lams`` (m_dirs, L) tangent spectra (the
+    :func:`spectrum` of each first-column Jacobian row).  No noise: the
+    diagonal does not depend on theta."""
+    dev = _check(geom, lams, v)
+    if dev.type == "cpu":
+        return fused_tangent_matvecs_plain(geom, lams, v)
+    return _launch("ski_tangent", geom, lams, 0.0, v)
+
+
+def _launch(name, geom, lams, noise2, v):
+    sfx = _cuda.dtype_suffix(v.dtype)
+    n, b = int(v.shape[0]), int(v.shape[1])
+    m_dirs = int(lams.shape[0])
+    out = torch.empty((m_dirs, n, b), dtype=v.dtype, device=v.device)
+    if n == 0 or b == 0 or m_dirs == 0:
+        return out
+    t = geom.tensors(v.device, v.dtype)
+    cols = m_dirs * ((b + 1) // 2)
+    if cols > 65535:
+        raise ValueError(f"m_dirs * ceil(b / 2) = {cols} packed columns; "
+                         f"one launch takes at most 65535")
+    # two ping-pong buffers of (cols, L) complex values
+    scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
+                          device=v.device)
+    args = [n, geom.m_grid, geom.L, geom.offs[0], len(geom.offs),
+            t["occ"].data_ptr(), t["wcell"].data_ptr(),
+            t["cell"].data_ptr(), lams.data_ptr(),
+            float(noise2) if name == "ski_gram" else m_dirs]
+    args += [v.data_ptr(), b, out.data_ptr(), scratch[0].data_ptr(),
+             scratch[1].data_ptr(), _cuda.stream_ptr(v.device)]
+    _cuda.call(f"{name}_{sfx}", *args)
+    _cuda.LAUNCHES[name] += 1
+    return out

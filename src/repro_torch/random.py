@@ -2,11 +2,12 @@
 
 A :class:`Key` records a seed and the path of splits and fold-ins that led
 to it, exactly where the JAX package splits or folds its ``jax.random``
-keys.  Only :func:`rademacher` and :func:`uniform` draw: each seeds a
-``torch.Generator`` from the key's path.  The draws differ from JAX's bits
-for the same seed; a test that needs the JAX package's probes, scan points
-and start points replaces these two functions by ones that replay the
-key's path with ``jax.random`` (the key path is the whole interface).
+keys.  Only :func:`rademacher`, :func:`uniform` and :func:`normal` draw:
+each seeds a ``torch.Generator`` from the key's path.  The draws differ
+from JAX's bits for the same seed; a test that needs the JAX package's
+probes, scan points and start points replaces these functions by ones
+that replay the key's path with ``jax.random`` (the key path is the whole
+interface).
 """
 
 from __future__ import annotations
@@ -58,3 +59,10 @@ def uniform(k: Key, shape, lo: float = 0.0, hi: float = 1.0, *, device,
     """Uniform entries on [lo, hi)."""
     u = torch.rand(tuple(shape), generator=_generator(k), dtype=dtype)
     return (lo + (hi - lo) * u).to(device)
+
+
+def normal(k: Key, shape, *, device, dtype=torch.float64):
+    """Standard normal entries (the N(0, P) probes of preconditioned SLQ
+    colour these)."""
+    g = torch.randn(tuple(shape), generator=_generator(k), dtype=dtype)
+    return g.to(device)

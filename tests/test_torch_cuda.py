@@ -1,4 +1,5 @@
-"""The CUDA kernels B1, B2 and B4 against their plain PyTorch versions.
+"""The CUDA kernels B1, B2, B4, B5 and B6 against their plain PyTorch
+versions.
 
 These tests need a card and skip without one.  They import neither JAX nor
 the JAX package, so they also run where JAX is not installed:
@@ -13,7 +14,9 @@ import torch
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import kernel_matvec as tkm
 from repro_torch.kernels import kernel_tile as tkt
+from repro_torch.kernels import operators as topers
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ski_fused as tsf
 
 THETAS = {
     ("k1", "mid"): [np.log(300.0), np.log(12.4), 0.1],
@@ -83,3 +86,54 @@ def test_cuda_matvec_splits_wide_right_hand_sides(cuda_device):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["tile_matvec"] == 3
     assert _relerr(out, tkm.tile_matvec_plain("se", p, x, x, v)) < 1e-12
+
+
+def _ski_geometry(n_full=3001, drop=0.1, seed=9):
+    """A gappy two-hour record's SKI operator (W a selection matrix)."""
+    rng = np.random.default_rng(seed)
+    x = 2.0 * np.arange(n_full)
+    x = x[rng.uniform(size=n_full) >= drop]
+    return topers.select_operator("k2", torch.tensor(x), 0.01, 1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b", [1, 8, 9, 70])
+def test_cuda_ski_kernels_match_plain(cuda_device, dtype, tol, b):
+    """B5 and B6 against their plain (torch.fft) versions."""
+    op = _ski_geometry()
+    assert op.name == "ski" and op.fused
+    geom = op.fused_geom
+    theta = torch.tensor(THETAS[("k2", "mid")], dtype=torch.float64)
+    grid = topers.ToeplitzOperator("k2", op.grid)
+    lam = tsf.spectrum(grid.first_column(theta), geom)
+    lams = tsf.spectrum(grid.first_column_jacobian(theta), geom)
+    rng = np.random.default_rng(b)
+    v = torch.tensor(rng.standard_normal((geom.n, b)), device=cuda_device,
+                     dtype=dtype)
+    lam, lams = lam.to(cuda_device, dtype), lams.to(cuda_device, dtype)
+    _cuda.reset_launches()
+    got = tsf.fused_gram_matvec(geom, lam, 1e-4, v)
+    tan = tsf.fused_tangent_matvecs(geom, lams, v)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ski_gram"] == 1
+    assert _cuda.LAUNCHES["ski_tangent"] == 1
+    assert got.shape == (geom.n, b) and tan.shape == (5, geom.n, b)
+    assert _relerr(got, tsf.fused_gram_matvec_plain(geom, lam, 1e-4, v)) \
+        < tol
+    assert _relerr(tan, tsf.fused_tangent_matvecs_plain(geom, lams, v)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_ski_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    op = _ski_geometry(601)
+    geom = op.fused_geom
+    lam = torch.zeros(geom.L, device=cuda_device, dtype=torch.float64)
+    v = torch.zeros((geom.n, 4), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsf.fused_gram_matvec(geom, lam, 0.0, v[:, ::2])
+    with pytest.raises(TypeError):
+        tsf.fused_gram_matvec(geom, lam, 0.0, v.to(torch.float16))
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_gram_matvec(geom, lam.cpu(), 0.0, v)

@@ -17,6 +17,7 @@ from repro_torch.kernels import kernel_matvec as tkm
 from repro_torch.kernels import kernel_tile as tkt
 from repro_torch.kernels import operators as topers
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ski_fused as tsf
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -92,6 +93,14 @@ def test_cpu_tensors_never_launch_a_kernel():
     tops.matvec_tangents("k1", theta, xt, xt, torch.ones(120, 2,
                                                          dtype=torch.float64))
     tops.matrix("k1", theta, xt, xt[:5])
+    # the near-grid path: B5 and B6 take their plain versions on the CPU
+    near = _near(400)
+    ski = tgp.GP.bind(_spec(), near, np.sin(near), device="cpu")
+    assert ski.op.fused
+    s = teng.make_solver("iterative", ski.cov, theta, ski.x, ski.y, 0.1,
+                         opts=ski.spec.solver.opts, op=ski.op)
+    teng.profiled_grad(s)
+    ski.predict(near[::40], theta=theta)
     assert sum(_cuda.LAUNCHES.values()) == 0
     assert not _cuda.KERNELS.fns       # nothing was built either
 
@@ -106,18 +115,31 @@ def test_wrappers_reject_devices_they_cannot_serve():
     with pytest.raises(ValueError):
         tkt.tile_matrix("se", p.to("meta"), x.to("meta"), x.to("meta"))
     assert tkm.tile_matvec("se", p, x, x, v).shape == (4, 1)
+    geom = topers.select_operator("k1", torch.tensor(_near(300)), 0.1,
+                                  1e-8).fused_geom
+    lam = torch.zeros(geom.L, dtype=torch.float64)
+    vv = torch.zeros((geom.n, 2), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tsf.fused_gram_matvec(geom, lam.to("meta"), 0.0, vv.to("meta"))
+    with pytest.raises(ValueError):
+        tsf.fused_tangent_matvecs(geom, lam[None].to("meta"), vv.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_gram_matvec(geom, lam.to("meta"), 0.0, vv)
+    assert tsf.fused_gram_matvec(geom, lam, 0.0, vv).shape == (geom.n, 2)
+
+
+def _near(n_full=3000):
+    """A gappy record: every 7th sample of a unit grid dropped."""
+    return np.delete(np.arange(float(n_full)), np.arange(5, n_full, 7))
 
 
 @pytest.mark.parametrize("what", [
     "backend_dense", "backend_stochastic", "auto_small_n", "auto_huge_n",
-    "operator_toeplitz", "operator_ski", "operator_lowrank",
-    "precond_pivchol", "precond_circulant", "precond_rank",
-    "exact_grid", "near_grid", "composite_kind", "dense_only_kind",
-    "nested_evidence", "batched_bank"])
+    "operator_lowrank", "precond_pivchol", "precond_rank",
+    "composite_kind", "dense_only_kind", "nested_evidence", "batched_bank"])
 def test_unported_branches_raise_not_implemented(what):
     x, y = _irregular()
-    grid = np.arange(3000.0)
-    near = np.delete(np.arange(3000.0), np.arange(5, 3000, 7))
+    near = _near()
     cases = {
         "backend_dense": lambda: tgp.GP.bind(_spec(backend="dense"), x, y,
                                              device="cpu"),
@@ -127,25 +149,14 @@ def test_unported_branches_raise_not_implemented(what):
                                             device="cpu"),
         "auto_huge_n": lambda: tgp.GP.bind(
             _spec(backend="auto"), *_irregular(65536), device="cpu"),
-        "operator_toeplitz": lambda: tgp.GP.bind(
-            _spec(operator="toeplitz"), x, y, device="cpu"),
-        "operator_ski": lambda: tgp.GP.bind(_spec(operator="ski"), x, y,
-                                            device="cpu"),
         "operator_lowrank": lambda: tgp.GP.bind(
             _spec(operator="lowrank"), x, y, device="cpu"),
         "precond_pivchol": lambda: tgp.GP.bind(
             _spec(precond="pivchol"), x, y, device="cpu").log_likelihood(
                 [5.0, 2.0, 0.0]),
-        "precond_circulant": lambda: tgp.GP.bind(
-            _spec(precond="circulant"), x, y, device="cpu").log_likelihood(
-                [5.0, 2.0, 0.0]),
         "precond_rank": lambda: tgp.GP.bind(
             _spec(precond_rank=8), x, y, device="cpu").log_likelihood(
                 [5.0, 2.0, 0.0]),
-        "exact_grid": lambda: tgp.GP.bind(_spec(), grid, np.sin(grid),
-                                          device="cpu"),
-        "near_grid": lambda: tgp.GP.bind(_spec(), near, np.sin(near),
-                                         device="cpu"),
         "composite_kind": lambda: resolve("se*matern32"),
         "dense_only_kind": lambda: resolve("periodic"),
         "nested_evidence": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
@@ -153,8 +164,54 @@ def test_unported_branches_raise_not_implemented(what):
         "batched_bank": lambda: tgp.compare([_spec("k1"), _spec("k2")], near,
                                             np.sin(near), device="cpu"),
     }
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         cases[what]()
+    if what == "batched_bank":
+        assert "batched-bank slice" in str(err.value)
+
+
+@pytest.mark.parametrize("what", [
+    "exact_grid", "near_grid", "near_grid_auto_policy", "scattered_ski",
+    "precond_circulant", "operator_toeplitz"])
+def test_ported_grid_branches_bind(what):
+    """The branches the near-grid slice ported: exact grids bind the
+    Toeplitz operator, near grids SKI with the fused kernels, scattered
+    data under operator="ski" the unfused composition, and
+    precond="circulant" resolves."""
+    x, y = _irregular()
+    grid = np.arange(3000.0)
+    near = _near()
+    theta = [5.0, 2.0, 0.0]
+    if what == "exact_grid":
+        gp = tgp.GP.bind(_spec(), grid, np.sin(grid), device="cpu")
+        assert isinstance(gp.op, topers.ToeplitzOperator)
+    elif what == "near_grid":
+        gp = tgp.GP.bind(_spec(), near, np.sin(near), device="cpu")
+        assert isinstance(gp.op, topers.SKIOperator) and gp.op.fused
+        assert teng.select_fused(gp.op)
+    elif what == "near_grid_auto_policy":
+        # the default policy at n > 2048: iterative, SKI, fused, circulant
+        spec = tgp.GPSpec("k1", noise=tgp.NoiseModel(0.01))
+        gp = tgp.GP.bind(spec, near, np.sin(near), device="cpu")
+        assert (gp.backend, gp.operator_name) == ("iterative", "ski")
+        assert gp.op.fused and gp.n > 2048
+        assert teng.select_precond(gp.op, teng.SolverOpts(
+            precond="auto")) == "circulant"
+    elif what == "scattered_ski":
+        gp = tgp.GP.bind(_spec(operator="ski"), x, y, device="cpu")
+        assert isinstance(gp.op, topers.SKIOperator) and not gp.op.fused
+        assert gp.op.fused_geom is None
+    elif what == "precond_circulant":
+        gp = tgp.GP.bind(_spec(precond="circulant"), near, np.sin(near),
+                         device="cpu")
+        pc = tit.make_preconditioner(gp.op, torch.tensor(theta),
+                                     "circulant")
+        assert pc.choice == "circulant" and pc.slq is not None
+    else:
+        gp = tgp.GP.bind(_spec(operator="toeplitz"), grid, np.sin(grid),
+                         device="cpu")
+        assert gp.operator_name == "toeplitz"
+    assert torch.isfinite(gp.log_likelihood(theta))
 
 
 def test_irregular_data_binds_the_tile_operator():

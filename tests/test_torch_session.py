@@ -2,10 +2,11 @@
 against the JAX package on the same numpy data.
 
 The random seam: the port draws all its randomness through
-``repro_torch.random.rademacher`` / ``uniform`` from a key that records the
-JAX key tree.  The fixture below replaces both by functions that replay the
-key's path with ``jax.random``, so the port sees the JAX package's probes,
-scan points and start points everywhere.
+``repro_torch.random.rademacher`` / ``uniform`` / ``normal`` from a key that
+records the JAX key tree.  The fixture below replaces all three by
+functions that replay the key's path with ``jax.random``, so the port sees
+the JAX package's probes (Rademacher, and the N(0, P) probes of
+preconditioned SLQ), scan points and start points everywhere.
 
 Two kinds of check:
   * stages on a JAX fit carried across (``repro_torch.gp.convert``): the
@@ -79,8 +80,14 @@ def jax_random(monkeypatch):
                                           dtype=jnp.float64))
         return torch.tensor(u, device=device, dtype=dtype)
 
+    def normal(k, shape, *, device, dtype=torch.float64):
+        g = np.asarray(jax.random.normal(_jax_key(k), tuple(shape),
+                                         dtype=jnp.float64))
+        return torch.tensor(g, device=device, dtype=dtype)
+
     monkeypatch.setattr(rnd, "rademacher", rademacher)
     monkeypatch.setattr(rnd, "uniform", uniform)
+    monkeypatch.setattr(rnd, "normal", normal)
 
 
 def _data():
