@@ -1,19 +1,21 @@
 """Drive the PyTorch/CUDA port on one card and check it.
 
     python3 chip_smoke.py [--seed S] [--budget committed|planned] [--json PATH]
+                          [--six-month SIGMA_N,STARTS,ITERS,SCAN]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU.  It builds
 the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
 started together) and then:
 
-  1. kernel phase: each kernel of the two paths (B1 tile_matvec, B2
-     tile_tangent, B4 tile_matrix; B5 ski_gram, B6 ski_tangent) at the
-     shapes its workflow gives it, held against its plain PyTorch version
-     on the same inputs (float64, and one float32 case of B5 and B6), and
-     timed (CUDA events, median of repeats) beside the plain version and
-     the least time the card could take (the roofline bound below); B5
-     is also timed against its plain version at n ~ 600, 2000 and 7080
-     (where the card's own crossover lies);
+  1. kernel phase: each kernel of the three paths (B1 tile_matvec, B2
+     tile_tangent, B4 tile_matrix; B5 ski_gram, B6 ski_tangent; B7
+     ski_bank) at the shapes its workflow gives it, held against its
+     plain PyTorch version on the same inputs (float64, and one float32
+     case of B5, B6 and B7), and timed (CUDA events, median of repeats)
+     beside the plain version and the least time the card could take
+     (the roofline bound below); B5 is also timed against its plain
+     version at n ~ 600, 2000 and 7080 (where the card's own crossover
+     lies), and B7 at B = 1 is held against B5 on the same inputs;
   2. irregular phase: the paper's workflow through the front door on one
      year of hourly-scale irregular sampling (n = 8760, the tile
      operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
@@ -22,8 +24,12 @@ started together) and then:
      cadence, n_full = 7869, 10% of the samples dropped, n ~ 7080: a near
      grid, the SKI operator with B5 and B6 and the circulant
      preconditioner): GP.bind(k2) -> fit -> log_evidence -> compare (ln B
-     of k2 vs k1, batch="off") -> predict at 512 points with variance and
-     the SKI-interpolated cross covariance; then, at the fitted peak, the
+     of k2 vs k1 with the default batch="auto": the batched bank, one B7
+     launch per CG or Lanczos iteration, never B5) -> predict at 512
+     points with variance and the SKI-interpolated cross covariance; the
+     compare stage prints the bank's structure, fused, preconditioner, B,
+     its B7 launches and how its CG solves ended; then, at the fitted
+     peak, the
      phase's answers against the exact GP (a dense Cholesky of the same
      K, which the one-hot W makes exact): a cut CG solve whose K-norm
      error exceeds the zero start's fails the run, and the errors of
@@ -32,10 +38,16 @@ started together) and then:
      just after, and each stage prints how its CG solves ended (tolerance
      or cg_max_iter) and the eigenvalues of every Laplace Hessian it
      formed;
-  4. small-input checks: ln P_max and its gradient on the card against
+  4. sequential vs bank: a 6-month gappy record (n ~ 1770, the iterative
+     backend pinned, sigma_n = 0.03) through compare(batch="off") and
+     compare(batch="auto") on the same data and key; both must give
+     finite ln Z and pick the same model; ln B of both and their
+     difference are printed;
+  5. small-input checks: ln P_max and its gradient on the card against
      the port's CPU path (plain PyTorch) with the same probes, on an
      irregular input, a gappy record (SKI) and its un-dropped grid
-     (Toeplitz).
+     (Toeplitz); and the bank objective's values and gradients on a
+     gappy record (B7) and on its grid (the Toeplitz bank).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
@@ -55,16 +67,23 @@ since the m directions can be applied afterwards to the (NS, n1, b)
 result at a cost independent of n2.  B5 and B6 move v and the output
 once, the L/2 + 1 distinct values of each spectrum (real and even), the
 n s stencil weights of the sampled points and their n cell indices, and
-do the FFTs (5 L log2 L per complex column and transform: one forward and
-one inverse per pair of columns for B5, one forward and m inverse for
-B6), the spectrum multiply and the two stencils (2 s per entry each), at
-the fp64 (34 TFLOP/s) or fp32 (67 TFLOP/s) rate outside the tensor
-cores.
+do the FFTs (5 L log2 L per complex column and transform, a complex
+column carrying two real ones: one forward and one inverse per b / 2 for
+B5, one forward and m inverse for B6; the zero half an odd b pads is not
+counted), the spectrum multiply and the two stencils (2 s per entry
+each), at the fp64 (34 TFLOP/s) or fp32 (67 TFLOP/s) rate outside the
+tensor cores.  B7 counts the same per member: V and the output (n B c
+each), the B distinct half-spectra, the stencil, and the FFT pair of
+B c / 2 complex columns.
 
 The SKI cell follows the repository's ``woods_hole_like`` recipe (five
 tidal constituents with their periods and amplitudes, random phases, a
 spring/neap envelope, noise 0.01, mean removed) and ``drop_random_hours``,
 in numpy from ``--seed``.
+
+``--six-month SIGMA_N,STARTS,ITERS,SCAN`` builds the kernels and runs only
+check 4 at that budget (model noise, restarts per model, NCG steps, scan
+points of the sequential fit; 0 for none): how its budget was chosen.
 
 ``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
@@ -99,6 +118,7 @@ from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import kernel_matvec as km  # noqa: E402
 from repro_torch.kernels import kernel_tile as kt  # noqa: E402
 from repro_torch.core.reparam import FlatBox  # noqa: E402
+from repro_torch.gp import batch  # noqa: E402
 from repro_torch.kernels import operators as opers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ski_fused as sf  # noqa: E402
@@ -129,7 +149,7 @@ BUDGETS = {"committed": dict(max_iters=25, scan_points=64, tidal_boxes=True),
            "planned": dict(max_iters=5, scan_points=None, tidal_boxes=False)}
 # max-abs error over max-abs against the plain version
 TOL = {"tile_matvec": 1e-12, "tile_tangent": 1e-11, "tile_matrix": 1e-12,
-       "ski_gram": 1e-12, "ski_tangent": 1e-12}
+       "ski_gram": 1e-12, "ski_tangent": 1e-12, "ski_bank": 1e-12}
 TOL_F32 = 1e-5
 SOURCES = {
     "tile_matvec": ("src/repro_torch/csrc/tile_matvec.cu",
@@ -142,9 +162,11 @@ SOURCES = {
                  "src/repro/kernels/ski_fused.py:667"),
     "ski_tangent": ("src/repro_torch/csrc/ski_tangent.cu",
                     "src/repro/kernels/ski_fused.py:712"),
+    "ski_bank": ("src/repro_torch/csrc/ski_bank.cu",
+                 "src/repro/kernels/ski_fused.py:789"),
 }
 TILE_KERNELS = ("tile_matvec", "tile_tangent", "tile_matrix")
-SKI_KERNELS = ("ski_gram", "ski_tangent")
+SKI_KERNELS = ("ski_gram", "ski_tangent", "ski_bank")
 
 # the SKI cell: the woods_hole_like recipe on two years of the 2 h cadence
 LUNAR_MONTH_H = 27.321661 * 24.0
@@ -155,6 +177,19 @@ TIDAL_SIGMA_N = 0.01
 CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
                 ("N2", 12.6583475, 0.24), ("K1", 23.9344721, 0.14),
                 ("O1", 25.8193417, 0.11))
+# the 6-month sequential-vs-bank check: NCG steps, scan points (the
+# sequential path's; the bank starts from uniform draws) and the model's
+# noise.  At the record's own sigma_n = 0.01 the check takes about 580 s
+# on the card (CG cut in most solves), and the bank's two uniform starts
+# per model leave k1 far below the sequential path's ln P of 1285: with
+# the port's draws at 331 on the card (no positive definite Hessian, nan
+# ln Z) and 242 on the CPU; with the JAX package's draws at 735, in JAX
+# and in the port alike (scripts/six_month_bank_reference.py).  At 0.03,
+# 25 steps and 64 scan points both paths give finite ln Z in about 190 s
+# (PERF.md).
+SIX_MONTH_ITERS = 25
+SIX_MONTH_SCAN = 64
+SIX_MONTH_SIGMA_N = 0.03
 # points the SKI kernel cases run at (flat coordinates, inside the boxes)
 SKI_THETA = {"k1": [math.log(300.0), math.log(12.42), 0.0],
              "k2": [math.log(300.0), math.log(12.42), 0.0, math.log(23.93),
@@ -198,21 +233,25 @@ def bound(n_bytes: float, eval_ops: float, mma_flops: float,
                                        else "operations")
 
 
-def ski_bound(geom, b: int, m_dirs: int, dtype):
-    """Roofline bound (ms, what bounds it) of B5 (m_dirs = 0) or B6: the
-    bytes of v, the output, the distinct half of each real even spectrum,
-    the n s weights and the n cell indices (the kernels' (m, s) weight
-    table and m-long cell map are a layout, not part of the function)."""
+def ski_bound(geom, b: int, m_dirs: int, dtype, members: int = 1):
+    """Roofline bound (ms, what bounds it) of B5 (m_dirs = 0), B6 or B7
+    (m_dirs = 0, ``members`` = B, b = c columns each): the bytes of v,
+    the output, the distinct half of each real even spectrum, the n s
+    weights and the n cell indices (the kernels' (m, s) weight table and
+    m-long cell map are a layout, not part of the function)."""
     n, L, s = geom.n, geom.L, len(geom.offs)
     item = torch.finfo(dtype).bits // 8
     outs = max(m_dirs, 1)
-    n_bytes = (item * (n * b + outs * n * b + n * s + outs * (L // 2 + 1))
-               + 4 * n)
-    cols = (b + 1) // 2
+    nb = n * b * members
+    n_bytes = (item * (nb + outs * nb + n * s
+                       + outs * members * (L // 2 + 1)) + 4 * n)
+    # a complex transform carries two real columns: b / 2 per member (the
+    # zero half that an odd b pads is layout, not work)
+    cols = members * b / 2.0
     fft = 5.0 * L * math.log2(L)
     ops_ = (fft * cols * (1 + outs) + 2.0 * L * cols * outs
-            + 2.0 * s * n * b * (1 + outs) + (2.0 * n * b if not m_dirs
-                                              else 0.0))
+            + 2.0 * s * nb * (1 + outs) + (2.0 * nb if not m_dirs
+                                           else 0.0))
     peak = FP64_PEAK if dtype == torch.float64 else FP32_PEAK
     return bound(n_bytes, ops_, 0.0, peak)
 
@@ -426,7 +465,65 @@ def ski_kernel_cases(cases, dev, rng, seed):
                        geom, lam, op.noise2, v), 20))
         crossover.append(row)
         emit({"ski_gram_crossover": row})
+    bank_kernel_cases(cases, dev, rng, seed)
     return crossover
+
+
+def bank_spectra(op, B: int, dtype):
+    """(B, L) spectra of a bank that alternates k1 and k2, each repeat
+    of a family moved 0.05 in its window (restart r of model k)."""
+    rows = []
+    for q in range(B):
+        kind = ("k1", "k2")[q % 2]
+        theta = torch.tensor(SKI_THETA[kind], dtype=torch.float64,
+                             device=op.x.device)
+        theta[0] += 0.05 * (q // 2)
+        rows.append(sf.spectrum(opers.ToeplitzOperator(kind, op.grid)
+                                .first_column(theta), op.fused_geom))
+    return torch.stack(rows).to(dtype)
+
+
+def bank_kernel_cases(cases, dev, rng, seed):
+    """B7 on the SKI cell's geometry: B = 4 (two models x two restarts,
+    as the SKI phase runs) at c = 1 (value CG), 8 (Lanczos) and 9
+    (training CG), B = 20 at c = 9 (the reference's default of 10
+    restarts), one float32 case; then B7 at B = 1 against B5."""
+    x, _, _, _ = make_tidal_data(seed)
+    op = opers.select_operator("k2", torch.tensor(x, device=dev),
+                               TIDAL_SIGMA_N, 1e-8)
+    geom = op.fused_geom
+    for dtype, shapes in ((torch.float64, ((4, 1), (4, 8), (4, 9),
+                                           (20, 9))),
+                          (torch.float32, ((4, 9),))):
+        for B, c in shapes:
+            lams = bank_spectra(op, B, dtype)
+            V = torch.tensor(rng.standard_normal((geom.n, B, c)), device=dev,
+                             dtype=dtype)
+            got = sf.fused_bank_matvec(geom, lams, op.noise2, V)
+            want = sf.fused_bank_matvec_plain(geom, lams, op.noise2, V)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            bms, by = ski_bound(geom, c, 0, dtype, members=B)
+            cases["ski_bank"].append(dict(
+                kind="k1/k2", n=geom.n, m_grid=geom.m_grid, L=geom.L, B=B,
+                c=c, dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                max_rel_err=rel,
+                ms=time_ms(lambda: sf.fused_bank_matvec(
+                    geom, lams, op.noise2, V), 20),
+                plain_ms=time_ms(lambda: sf.fused_bank_matvec_plain(
+                    geom, lams, op.noise2, V), 10),
+                bound_ms=bms, bound_by=by))
+    lam = bank_spectra(op, 1, torch.float64)
+    V = torch.tensor(rng.standard_normal((geom.n, 1, 9)), device=dev)
+    b7 = sf.fused_bank_matvec(geom, lam, op.noise2, V)[:, 0]
+    b5 = sf.fused_gram_matvec(geom, lam[0], op.noise2,
+                              V[:, 0].contiguous())
+    torch.cuda.synchronize()
+    err, rel = errors(b7, b5)
+    emit({"ski_bank_vs_ski_gram": dict(n=geom.n, B=1, c=9, max_abs_err=err,
+                                       max_rel_err=rel)})
+    if not rel <= TOL["ski_bank"]:
+        raise AssertionError(f"B7 at B = 1 disagrees with B5: {rel}")
 
 
 # the case that stands for each kernel in the summary line: the shape the
@@ -435,7 +532,8 @@ HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
             "tile_tangent": dict(kind="k2"),
             "tile_matrix": dict(kind="k2"),
             "ski_gram": dict(b=9, dtype="float64"),
-            "ski_tangent": dict(kind="k2", dtype="float64")}
+            "ski_tangent": dict(kind="k2", dtype="float64"),
+            "ski_bank": dict(B=4, c=9, dtype="float64")}
 
 
 def headline(name, rows):
@@ -555,10 +653,41 @@ def workflow_phase(x_np, y_np, xstar_np, seed, budget):
     return summary
 
 
+class BankCapture:
+    """Keeps the BankTrainResult of every ``train_bank`` call made inside
+    the ``with`` block (the bank that a compare trained), for reports."""
+
+    def __enter__(self):
+        self.fits = []
+        self._train = batch.train_bank
+
+        def keep(*args, **kwargs):
+            self.fits.append(self._train(*args, **kwargs))
+            return self.fits[-1]
+
+        batch.train_bank = keep
+        return self
+
+    def __exit__(self, *exc):
+        batch.train_bank = self._train
+
+
+def describe_bank(tr, opts):
+    bank = tr.bank
+    thetas = tr.theta_all.reshape(-1, tr.theta_all.shape[-1])
+    return dict(structure=bank.structure, fused=bank.fused, B=bank.B,
+                m_grid=bank.m_grid,
+                L=bank.fused_geom.L if bank.fused_geom else bank.L,
+                precond=bank.resolve_precond(opts),
+                slq_precond=bank.bind_slq_precond(
+                    thetas, thetas.dtype) is not None)
+
+
 def ski_phase(seed):
     """The near-grid path: a gappy tide record through the SKI operator
     (B5 and B6) with the circulant preconditioner: bind(k2) -> fit ->
-    log_evidence -> compare([k1, k2], batch="off") -> predict."""
+    log_evidence -> compare([k1, k2]) (the batched bank, B7) ->
+    predict."""
     x_np, y_np, xstar_np, n_full = make_tidal_data(seed)
     opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
                           cg_max_iter=400, precond="auto")
@@ -605,8 +734,24 @@ def ski_phase(seed):
                              "'circulant' with the masked-circulant SLQ")
     fitted = stage("fit", lambda: session.fit(kfit))
     evidence = stage("log_evidence", lambda: fitted.log_evidence(key=kev))
-    reports = stage("compare", lambda: gp.compare(
-        specs, x_np, y_np, key=kcmp, batch="off"))
+    with BankCapture() as cap:
+        reports = stage("compare", lambda: gp.compare(specs, x_np, y_np,
+                                                      key=kcmp))
+    if len(cap.fits) != 1:
+        raise AssertionError("the compare stage did not train one bank")
+    bank = dict(describe_bank(cap.fits[0], opts),
+                launches=stage.launches["compare"],
+                cg_stops=stage.cg_stops["compare"],
+                iters_all=cap.fits[0].iters_all.tolist())
+    emit({"bank": bank})
+    if (bank["structure"], bank["fused"], bank["precond"],
+            bank["slq_precond"]) != ("near", True, "circulant", True):
+        raise AssertionError(f"the compare stage's bank is {bank}, expected "
+                             "the fused near-grid bank with the circulant "
+                             "preconditioner and the masked-circulant SLQ")
+    if bank["launches"]["ski_bank"] <= 0 or bank["launches"]["ski_gram"]:
+        raise AssertionError(f"the compare stage must launch ski_bank and "
+                             f"not ski_gram: {bank['launches']}")
     post = stage("predict", lambda: fitted.predict(xstar_np,
                                                    cross="interp"))
     var_before_clamp_min = predict.VAR_BEFORE_CLAMP_MIN[0]
@@ -626,7 +771,7 @@ def ski_phase(seed):
                               theta_hat=r.theta_hat.tolist(),
                               n_modes=r.n_modes, n_evals=r.n_evals_train)
                  for r in reports},
-        ln_b_k2_vs_k1=lnb, host_syncs=sum(syncs.values()),
+        ln_b_k2_vs_k1=lnb, bank=bank, host_syncs=sum(syncs.values()),
         host_syncs_by_loop=syncs, launches=launches,
         stage_launches=stage.launches, var_min=float(post.var.min()),
         var_max=float(post.var.max()),
@@ -636,9 +781,64 @@ def ski_phase(seed):
     summary["at_peak"] = check_at_peak(fitted, post, xstar_np, seed)
     check_launched(launches, SKI_KERNELS, "SKI")
     check_finite((("ln P_max", res.log_p_max), ("ln Z", evidence.log_z),
-                  ("ln B", lnb)))
+                  ("ln B", lnb))
+                 + tuple((f"compare ln Z ({r.name})", r.log_z_laplace)
+                         for r in reports))
     check_posterior(post, sf2, TIDAL_SIGMA_N, summary)
     return summary
+
+
+def sequential_vs_bank(seed, sigma_n=SIX_MONTH_SIGMA_N, n_starts=2,
+                       iters=SIX_MONTH_ITERS, scan=SIX_MONTH_SCAN):
+    """A 6-month gappy record (n ~ 1770; at n <= 2048 the "auto" backend
+    would be dense, so the iterative backend is pinned) through
+    compare(batch="off") and compare(batch="auto") on the same data and
+    key.  Both must give finite ln Z and pick the same model; the two
+    ln B differ by the estimators' noise (the paths draw different
+    probes and starts).  ``--six-month`` runs it alone at another
+    budget."""
+    x_np, y_np, _, n_full = make_tidal_data(seed, months=6)
+    opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
+                          cg_max_iter=400, precond="circulant")
+    policy = gp.SolverPolicy(backend="iterative", n_starts=n_starts,
+                             max_iters=iters, scan_points=scan or None,
+                             opts=opts)
+    boxes = tidal_boxes()
+    specs = [gp.GPSpec(k, box=boxes[k],
+                       noise=gp.NoiseModel(sigma_n=sigma_n),
+                       solver=policy) for k in ("k1", "k2")]
+    key = rnd.key(seed + 2000)
+    out = dict(n=len(x_np), n_full=n_full, sigma_n=sigma_n,
+               n_starts=n_starts, iters=iters, scan=scan)
+    for mode in ("off", "auto"):
+        _cuda.reset_launches()
+        it.reset_cg_stops()
+        t0 = time.perf_counter()
+        reports = gp.compare(specs, x_np, y_np, key=key, batch=mode)
+        torch.cuda.synchronize()
+        lz = {r.name: r.log_z_laplace for r in reports}
+        out[mode] = dict(
+            s=time.perf_counter() - t0, log_z=lz,
+            log_p_max={r.name: r.log_p_max for r in reports},
+            ln_b_k2_vs_k1=lz["k2"] - lz["k1"],
+            winner=max(lz, key=lambda k: lz[k]),
+            n_modes={r.name: r.n_modes for r in reports},
+            launches={k: _cuda.LAUNCHES[k] for k in SKI_KERNELS},
+            cg_stops=dict(tol=it.CG_STOPS["tol"],
+                          max_iter=it.CG_STOPS["max_iter"]))
+    out["ln_b_diff"] = out["auto"]["ln_b_k2_vs_k1"] \
+        - out["off"]["ln_b_k2_vs_k1"]
+    emit({"sequential_vs_bank": out})
+    check_finite(tuple((f"ln Z ({mode}, {k})", v) for mode in ("off", "auto")
+                       for k, v in out[mode]["log_z"].items()))
+    if out["off"]["winner"] != out["auto"]["winner"]:
+        raise AssertionError(f"compare(batch='off') and compare(batch="
+                             f"'auto') pick different models: {out}")
+    if out["auto"]["launches"]["ski_bank"] <= 0 \
+            or out["off"]["launches"]["ski_bank"]:
+        raise AssertionError(f"only the batched compare may launch "
+                             f"ski_bank: {out}")
+    return out
 
 
 def check_at_peak(fitted, post, xstar_np, seed):
@@ -735,6 +935,32 @@ def card_vs_cpu(spec, x, y, theta, sigma_n, dev):
     return lp_rel, g_rel, s.op.name
 
 
+def bank_card_vs_cpu(x, y, opts, dev):
+    """The bank objective's values and gradients (k1 and k2, two points
+    each) on the card and on the CPU path with the same probes; returns
+    (relative errors, "bank_" + structure)."""
+    thetas = np.zeros((4, 5))
+    for q in range(4):
+        th = SKI_THETA[("k1", "k2")[q % 2]]
+        thetas[q, :len(th)] = th
+        thetas[q, 0] += 0.05 * (q // 2)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        xt = torch.tensor(x, device=device)
+        bank = batch.BankOperator(("k1", "k2", "k1", "k2"), xt, TIDAL_SIGMA_N,
+                                  1e-8)
+        th = torch.tensor(thetas, device=device)
+        obj = batch.make_bank_objective(
+            bank, FlatBox(th - 1.0, th + 1.0), torch.tensor(y, device=device),
+            rnd.key(4), opts._replace(precond="circulant"))
+        lp, g = obj.value_and_grad_theta(th)
+        out.append((lp.cpu().numpy(), g.cpu().numpy()))
+    (lp_card, g_card), (lp_cpu, g_cpu) = out
+    lp_rel = float(np.max(np.abs(lp_card - lp_cpu) / np.abs(lp_cpu)))
+    g_rel = float(np.max(np.abs(g_card - g_cpu)) / np.max(np.abs(g_cpu)))
+    return lp_rel, g_rel, "bank_" + bank.structure
+
+
 def small_input_check(dev):
     """ln P_max and its gradient on the card against the CPU path: an
     irregular input (tiles), a gappy record (SKI, B5/B6, circulant
@@ -761,6 +987,8 @@ def small_input_check(dev):
     xf, yf, _, _ = make_tidal_data(2, months=2, drop=0.0)
     checks.append((n_full, "toeplitz", card_vs_cpu(
         tspec, xf, yf, SKI_THETA["k2"], TIDAL_SIGMA_N, dev)))
+    checks += [(len(xg), "bank_near", bank_card_vs_cpu(xg, yg, opts, dev)),
+               (n_full, "bank_exact", bank_card_vs_cpu(xf, yf, opts, dev))]
     for n, want_op, (lp_rel, g_rel, got_op) in checks:
         emit({"small_input_check": dict(n=n, operator=got_op,
                                         log_p_max_rel_err=lp_rel,
@@ -780,6 +1008,10 @@ def main(argv=None) -> int:
                     help="NCG budget of the irregular phase")
     ap.add_argument("--json", default=None,
                     help="also write every result to this JSON file")
+    ap.add_argument("--six-month", default=None,
+                    metavar="SIGMA_N,STARTS,ITERS,SCAN",
+                    help="run only the 6-month sequential-vs-bank check, "
+                         "at this budget")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -793,6 +1025,11 @@ def main(argv=None) -> int:
 
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
+    if args.six_month:
+        sig, starts, iters, scan = args.six_month.split(",")
+        sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),
+                           int(scan))
+        return 0
 
     x_np, y_np, xstar_np = make_data(args.seed, dev)
     x = torch.tensor(x_np, device=dev)
@@ -801,6 +1038,7 @@ def main(argv=None) -> int:
     cases, crossover = kernel_phase(x, xstar, dev, rng, args.seed)
     summary = workflow_phase(x_np, y_np, xstar_np, args.seed, args.budget)
     ski = ski_phase(args.seed)
+    seq_vs_bank = sequential_vs_bank(args.seed)
     small_input_check(dev)
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
@@ -819,14 +1057,15 @@ def main(argv=None) -> int:
             bound_by=h["bound_by"], library_ms=None,
             shape={k: v for k, v in h.items()
                    if k in ("kind", "n", "n1", "n2", "m_grid", "L", "b",
-                            "m", "dtype")}))
+                            "m", "B", "c", "dtype")}))
     emit({"kernels": kernels})
     if args.json:
         path = pathlib.Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
-            workflow=summary, ski_workflow=ski, kernels=kernels,
+            workflow=summary, ski_workflow=ski,
+            sequential_vs_bank=seq_vs_bank, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

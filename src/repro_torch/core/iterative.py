@@ -131,18 +131,24 @@ def slq_plain_logdet(alphas, betas, n: int):
 
 def slq_quadrature(alphas, betas, unorm2):
     """Per-probe Gauss quadrature of the (preconditioned) Lanczos
-    tridiagonals: vals_p = unorm2_p sum_i U[0, i]^2 ln(lambda_i(T_p))."""
+    tridiagonals: vals_p = unorm2_p sum_i U[0, i]^2 ln(lambda_i(T_p)).
+
+    A probe whose tridiagonal is not finite (a non-finite matvec, e.g. a
+    smoothness at the box edge) gets nan, as ``jnp.linalg.eigh`` gives it
+    probe by probe; torch's ``eigh`` would raise, so such a T is replaced
+    by the identity before the decomposition and its value set to nan
+    after it.  The other probes (in a bank, the other members) keep
+    theirs."""
     k = alphas.shape[0]
     T = torch.diag_embed(alphas.T)
     if k > 1:
         T = T + torch.diag_embed(betas.T, 1) + torch.diag_embed(betas.T, -1)
-    if not _sync.host(torch.all(torch.isfinite(T)), "slq"):
-        # a non-finite matvec (e.g. a smoothness at the box edge): the
-        # log-det is nan, as jnp.linalg.eigh gives it; torch would raise
-        return torch.full_like(unorm2, torch.nan)
-    lam, U = torch.linalg.eigh(T)
+    finite = torch.all(torch.isfinite(T).flatten(1), dim=1)      # (p,)
+    eye = torch.eye(k, dtype=T.dtype, device=T.device)
+    lam, U = torch.linalg.eigh(torch.where(finite[:, None, None], T, eye))
     lam = torch.clamp(lam, min=1e-30)
-    return unorm2 * torch.sum(U[:, 0, :] ** 2 * torch.log(lam), dim=-1)
+    vals = unorm2 * torch.sum(U[:, 0, :] ** 2 * torch.log(lam), dim=-1)
+    return torch.where(finite, vals, torch.full_like(vals, torch.nan))
 
 
 def preconditioned_lanczos(matvec: Callable, pinv: Callable, z0, k: int):

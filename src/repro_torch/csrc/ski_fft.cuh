@@ -1,13 +1,13 @@
-// The fused SKI sandwich, shared by B5 (ski_gram.cu) and B6
-// (ski_tangent.cu):
+// The fused SKI sandwich, shared by B5 (ski_gram.cu), B6 (ski_tangent.cu)
+// and B7 (ski_bank.cu):
 //
 //     out_i = W irfft(lam_i * rfft(pad_L(W^T v))) [+ noise2 v]
 //
-// Replaces the TPU kernels fused_gram_matvec and fused_tangent_matvecs of
-// src/repro/kernels/ski_fused.py, which run W^T, the circulant-embedding
-// FFT pair and W inside one Pallas body with their own FFT (the TPU has no
-// FFT primitive in a kernel).  The FFT here is written by hand as well; no
-// library transform runs inside the path.
+// Replaces the TPU kernels fused_gram_matvec, fused_tangent_matvecs and
+// fused_bank_matvec of src/repro/kernels/ski_fused.py, which run W^T, the
+// circulant-embedding FFT pair and W inside one Pallas body with their own
+// FFT (the TPU has no FFT primitive in a kernel).  The FFT here is written
+// by hand as well; no library transform runs inside the path.
 //
 // What it computes, for a near-grid geometry (every data row in a distinct
 // cell of the m-cell inducing grid; occ: cell -> row, n marks an empty
@@ -19,9 +19,12 @@
 //   FFT, multiply by the real spectrum lam (1/L folded in), inverse FFT;
 //   W ku:   out[i] = sum_o wcell[cell_i, o] ku[cell_i + d_o] (+ noise2 v).
 // Pair packing is exact because both halves of a pair see the same real,
-// even spectrum.  B6 shares W^T and the forward FFT across its m_dirs
-// tangent spectra: the first inverse stage reads each forward column once
-// per direction and writes m_dirs * P columns.
+// even spectrum, so pairs are packed within one member and never straddle
+// two (an odd column count pads a zero half).  B6 shares W^T and the
+// forward FFT across its m_dirs tangent spectra: the first inverse stage
+// reads each forward column once per direction and writes m_dirs * P
+// columns.  B7 takes v as (n, B, c) and multiplies the packed columns of
+// member q by that member's own spectrum.
 //
 // What bounds it on an H100: at the main path's shape (n ~ 7080,
 // m ~ 7875, L = 16384, b = 9, float64) the function must move ~1.5 MB
@@ -51,42 +54,50 @@ struct alignas(2 * sizeof(T)) cplx {
   T re, im;
 };
 
-// W^T v into packed columns: buf[p * L + c] = u[c, 2p] + i u[c, 2p+1].
+// W^T v into packed columns.  v is (n, B, c) row-major (row stride B c,
+// member offset q c); packed column col = q * P + p (P = ceil(c / 2))
+// holds member q's real columns 2p and 2p+1:
+// buf[col * L + cell] = u[cell, q, 2p] + i u[cell, q, 2p+1].  Pairs never
+// straddle two members: an odd c leaves the last pair's half zero.
 template <typename T>
 __global__ void wt_pack(int n, int m, int L, int d0, int s,
                         const int* __restrict__ occ,
                         const T* __restrict__ wcell,
-                        const T* __restrict__ v, int b,
+                        const T* __restrict__ v, int B, int c, int P,
                         cplx<T>* __restrict__ buf) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  const int p = blockIdx.y;
-  if (c >= L) return;
-  const int j0 = 2 * p;
-  const bool two = j0 + 1 < b;
+  const int cl = blockIdx.x * blockDim.x + threadIdx.x;
+  const int col = blockIdx.y;
+  if (cl >= L) return;
+  const int q = col / P;
+  const int j0 = 2 * (col % P);
+  const bool two = j0 + 1 < c;
+  const size_t row_stride = (size_t)B * c;
   T re = T(0), im = T(0);
-  if (c < m) {
+  if (cl < m) {
     for (int o = 0; o < s; ++o) {
-      const int cc = c - d0 - o;
+      const int cc = cl - d0 - o;
       if (cc < 0 || cc >= m) continue;
       const int row = occ[cc];
       if (row >= n) continue;  // empty cell: the sentinel, never read
       const T w = wcell[(size_t)cc * s + o];
-      const T* vr = v + (size_t)row * b + j0;
+      const T* vr = v + (size_t)row * row_stride + (size_t)q * c + j0;
       re += w * vr[0];
       if (two) im += w * vr[1];
     }
   }
-  buf[(size_t)p * L + c] = cplx<T>{re, im};
+  buf[(size_t)col * L + cl] = cplx<T>{re, im};
 }
 
 // One radix-R Stockham pass (natural order in, natural order out after
 // the last pass).  Column `col` of dst reads column col % cols_src of src;
-// a non-null lam scales the loads by lam[(col / cols_src) * L + row] (the
-// spectrum multiply, folded into the first inverse pass).
+// a non-null lam scales the loads by lam[(col / lam_div) * L + row] (the
+// spectrum multiply, folded into the first inverse pass: lam_div = P, so
+// each direction or member reads its own spectrum).
 template <typename T, int R, bool INV>
 __global__ void fft_stage(const cplx<T>* __restrict__ src,
                           cplx<T>* __restrict__ dst, int L, int Ns,
-                          int cols_src, const T* __restrict__ lam) {
+                          int cols_src, int lam_div,
+                          const T* __restrict__ lam) {
   const int stride = L / R;
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= stride) return;
@@ -97,7 +108,7 @@ __global__ void fft_stage(const cplx<T>* __restrict__ src,
 #pragma unroll
   for (int r = 0; r < R; ++r) v[r] = in[j + r * stride];
   if (lam != nullptr) {
-    const T* lm = lam + (size_t)(col / cols_src) * L;
+    const T* lm = lam + (size_t)(col / lam_div) * L;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const T l = lm[j + r * stride];
@@ -138,36 +149,40 @@ __global__ void fft_stage(const cplx<T>* __restrict__ src,
   for (int r = 0; r < R; ++r) out[base + r * Ns] = v[r];
 }
 
-// W ku (+ noise2 v) from packed column col = dir * P + p into
-// out[dir, i, 2p], out[dir, i, 2p+1]; v null adds no noise.
+// W ku (+ noise2 v) from packed column col = (dir * B + q) * P + p into
+// out[dir, i, q, 2p] and out[dir, i, q, 2p+1] (out is (m_dirs, n, B, c));
+// v null adds no noise.
 template <typename T>
 __global__ void w_apply(int n, int m, int L, int d0, int s,
                         const int* __restrict__ cell,
                         const T* __restrict__ wcell,
                         const cplx<T>* __restrict__ buf, int P, T noise2,
-                        const T* __restrict__ v, int b,
+                        const T* __restrict__ v, int B, int c,
                         T* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int col = blockIdx.y;
-  const int dir = col / P;
+  const int dq = col / P;
+  const int dir = dq / B;
+  const int q = dq % B;
   const int j0 = 2 * (col % P);
-  const int c = cell[i];
+  const int ci = cell[i];
   const cplx<T>* ku = buf + (size_t)col * L;
   T re = T(0), im = T(0);
   for (int o = 0; o < s; ++o) {
-    const int cc = c + d0 + o;
+    const int cc = ci + d0 + o;
     if (cc < 0 || cc >= m) continue;
-    const T w = wcell[(size_t)c * s + o];
+    const T w = wcell[(size_t)ci * s + o];
     re += w * ku[cc].re;
     im += w * ku[cc].im;
   }
-  T* orow = out + ((size_t)dir * n + i) * b + j0;
-  const bool two = j0 + 1 < b;
+  const size_t row_stride = (size_t)B * c;
+  const size_t at = (size_t)i * row_stride + (size_t)q * c + j0;
+  T* orow = out + (size_t)dir * n * row_stride + at;
+  const bool two = j0 + 1 < c;
   if (v != nullptr) {
-    const T* vr = v + (size_t)i * b + j0;
-    orow[0] = re + noise2 * vr[0];
-    if (two) orow[1] = im + noise2 * vr[1];
+    orow[0] = re + noise2 * v[at];
+    if (two) orow[1] = im + noise2 * v[at + 1];
   } else {
     orow[0] = re;
     if (two) orow[1] = im;
@@ -176,63 +191,70 @@ __global__ void w_apply(int n, int m, int L, int d0, int s,
 
 template <typename T, bool INV>
 cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L,
-                         int Ns, int cols_out, int cols_src, const T* lam,
-                         cudaStream_t st) {
+                         int Ns, int cols_out, int cols_src, int lam_div,
+                         const T* lam, cudaStream_t st) {
   dim3 grid((L / R + kThreads - 1) / kThreads, cols_out);
   if (R == 2)
     fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
-                                                    cols_src, lam);
+                                                    cols_src, lam_div, lam);
   else
     fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
-                                                    cols_src, lam);
+                                                    cols_src, lam_div, lam);
   return cudaGetLastError();
 }
 
-// The whole sandwich for m_dirs spectra lams (m_dirs, L) on v (n, b):
-// out (m_dirs, n, b).  noise_v is v for the gram (adds noise2 v) and null
-// for the tangents.  scratch0/1: two buffers of m_dirs * ceil(b/2) * L
-// complex values.  L is a power of two >= 2.
+// The whole sandwich on v (n, B, c): out (m_dirs, n, B, c), direction
+// dir of member q multiplied by the spectrum lams[dir * B + q] (lams is
+// (m_dirs * B, L)).  B5 is B = m_dirs = 1; B6 is B = 1 with m_dirs
+// tangent spectra; B7 is m_dirs = 1 with one spectrum per bank member.
+// noise_v is v for a gram (adds noise2 v) and null for the tangents.
+// scratch0/1: two buffers of m_dirs * B * ceil(c/2) * L complex values.
+// L is a power of two >= 2.
 template <typename T>
 cudaError_t sandwich(int n, int m, int L, int d0, int s, const int* occ,
                      const T* wcell, const int* cell, const T* lams,
                      int m_dirs, T noise2, const T* noise_v, const T* v,
-                     int b, T* out, T* scratch0, T* scratch1,
+                     int B, int c, T* out, T* scratch0, T* scratch1,
                      cudaStream_t st) {
-  const int P = (b + 1) / 2;
-  const int cols = m_dirs * P;
-  if (n <= 0 || b <= 0 || m_dirs <= 0) return cudaSuccess;
-  if (L < 2 || (L & (L - 1)) != 0 || cols > 65535) return cudaErrorInvalidValue;
+  const int P = (c + 1) / 2;
+  if (n <= 0 || c <= 0 || B <= 0 || m_dirs <= 0) return cudaSuccess;
+  const long long cols_ll = (long long)m_dirs * B * P;
+  if (L < 2 || (L & (L - 1)) != 0 || cols_ll > 65535)
+    return cudaErrorInvalidValue;
+  const int F = B * P;  // forward columns
+  const int cols = (int)cols_ll;
   cplx<T>* bufs[2] = {reinterpret_cast<cplx<T>*>(scratch0),
                       reinterpret_cast<cplx<T>*>(scratch1)};
-  wt_pack<T><<<dim3((L + kThreads - 1) / kThreads, P), kThreads, 0, st>>>(
-      n, m, L, d0, s, occ, wcell, v, b, bufs[0]);
+  wt_pack<T><<<dim3((L + kThreads - 1) / kThreads, F), kThreads, 0, st>>>(
+      n, m, L, d0, s, occ, wcell, v, B, c, P, bufs[0]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int log2L = 0;
   while ((1 << log2L) < L) ++log2L;
   int cur = 0;
-  // forward transform of the P packed columns
+  // forward transform of the F packed columns
   for (int Ns = 1; Ns < L;) {
     const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
-    err = launch_stage<T, false>(R, bufs[cur], bufs[cur ^ 1], L, Ns, P, P,
-                                 nullptr, st);
+    err = launch_stage<T, false>(R, bufs[cur], bufs[cur ^ 1], L, Ns, F, F,
+                                 P, nullptr, st);
     if (err != cudaSuccess) return err;
     cur ^= 1;
     Ns *= R;
   }
-  // inverse: the first pass multiplies by each direction's spectrum and
-  // spreads the P columns to m_dirs * P
+  // inverse: the first pass multiplies by each column's spectrum and
+  // spreads the F columns to m_dirs * F
   for (int Ns = 1; Ns < L;) {
     const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
     const bool first = Ns == 1;
     err = launch_stage<T, true>(R, bufs[cur], bufs[cur ^ 1], L, Ns, cols,
-                                first ? P : cols, first ? lams : nullptr, st);
+                                first ? F : cols, P,
+                                first ? lams : nullptr, st);
     if (err != cudaSuccess) return err;
     cur ^= 1;
     Ns *= R;
   }
   w_apply<T><<<dim3((n + kThreads - 1) / kThreads, cols), kThreads, 0, st>>>(
-      n, m, L, d0, s, cell, wcell, bufs[cur], P, noise2, noise_v, b, out);
+      n, m, L, d0, s, cell, wcell, bufs[cur], P, noise2, noise_v, B, c, out);
   return cudaGetLastError();
 }
 

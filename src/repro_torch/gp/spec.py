@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
+import torch
+
 from ..core import covariances as C
 from ..core.covariances import Covariance
 from ..core.engine import BACKENDS, SolverOpts
@@ -125,3 +127,19 @@ def spec_bank(kernels: Sequence[Union[str, Covariance, GPSpec]],
               solver: Optional[SolverPolicy] = None) -> Tuple[GPSpec, ...]:
     """One spec per kernel, sharing a noise model and solver policy."""
     return tuple(as_spec(k, noise=noise, solver=solver) for k in kernels)
+
+
+def pad_boxes(boxes: Sequence[FlatBox], m_max: int) -> FlatBox:
+    """Stack per-model boxes into one (K, m_max) padded box.
+
+    Padded dimensions get the (0, 1) interval: their widths stay finite
+    and the kernels never read them, so their gradients are exactly zero
+    and the padded coordinates never move.
+    """
+    los, his = [], []
+    for b in boxes:
+        lo, hi = torch.as_tensor(b.lo), torch.as_tensor(b.hi)
+        pad = m_max - lo.shape[0]
+        los.append(torch.cat([lo, lo.new_zeros(pad)]))
+        his.append(torch.cat([hi, hi.new_ones(pad)]))
+    return FlatBox(torch.stack(los), torch.stack(his))

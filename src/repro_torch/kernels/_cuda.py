@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_matrix.cu",
-           "ski_gram.cu", "ski_tangent.cu")
+           "ski_gram.cu", "ski_tangent.cu", "ski_bank.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "ski_fft.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -72,11 +72,13 @@ _SIGNATURES = {
     "tile_tangent_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
                          _VOID, _INT, _INT, _VOID, _INT, _VOID],
     "tile_matrix_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _VOID],
-    "ski_gram_f64": [_INT] * 5 + [_VOID] * 4 + [_DOUBLE, _VOID, _INT]
-    + [_VOID] * 4,
-    "ski_tangent_f64": [_INT] * 5 + [_VOID] * 4 + [_INT, _VOID, _INT]
-    + [_VOID] * 4,
 }
+# the three SKI kernels share one signature: (n, m, L, d0, s, occ, wcell,
+# cell, lams, m_dirs, noise2, v, B, c, out, scratch0, scratch1, stream)
+for _name in ("ski_gram_f64", "ski_tangent_f64", "ski_bank_f64"):
+    _SIGNATURES[_name] = ([_INT] * 5 + [_VOID] * 4 + [_INT, _DOUBLE, _VOID,
+                                                      _INT, _INT]
+                          + [_VOID] * 4)
 for _name in list(_SIGNATURES):
     if _name.endswith("_f64"):
         _SIGNATURES[_name[:-4] + "_f32"] = _SIGNATURES[_name]

@@ -322,6 +322,74 @@ def masked_circulant_slq_precond(lam, occ,
     return SLQPrecond(apply_inv, sample, logdet)
 
 
+def masked_circulant_slq_precond_bank(lams, occ,
+                                      max_miss: int = _GAPPY_SLQ_MAX_MISS
+                                      ) -> Optional[SLQPrecond]:
+    """Bank form of :func:`masked_circulant_slq_precond`: B members that
+    share one occupancy pattern, P_b = M_b[occ, occ] with per-member
+    spectra ``lams`` (B, m) (noise folded in).
+
+    The occ/miss index work is geometry, the same for every member, and is
+    done once on the host; the FFT applies, the g x g correction Cholesky
+    of G_b = M_b^{-1}[miss, miss] and ln det P_b batch over the members.
+    The accessors act on bank blocks: ``apply_inv`` (n, B, p) ->
+    (n, B, p), ``sample`` gives (n, B, p), ``logdet`` is (B,).  Returns
+    None when g exceeds ``max_miss`` or occ has duplicates.  1-D grids
+    only (the multi-axis bank comes with the N-D slice).
+    """
+    if lams.ndim != 2:
+        raise _pending.pending("the multi-axis masked-circulant bank "
+                               "preconditioner", _pending.ND)
+    B, m = int(lams.shape[0]), int(lams.shape[1])
+    dev = lams.device
+    LamT = lams.T[:, :, None]                              # (m, B, 1)
+    sq = torch.sqrt(LamT)
+    logdet = torch.sum(torch.log(lams), dim=1)             # (B,)
+
+    def conv_inv(R):
+        """Every member's M_b^{-1} on the full grid, (m, B, p) blocks."""
+        return torch.fft.ifft(torch.fft.fft(R, dim=0) / LamT, dim=0).real
+
+    occ_np = np.asarray(occ, np.int64).ravel()
+    if np.unique(occ_np).size != occ_np.size:
+        return None
+    miss_np = np.setdiff1d(np.arange(m, dtype=np.int64), occ_np)
+    g = int(miss_np.size)
+    if g > max_miss:
+        return None
+    if g:
+        diff = (miss_np[:, None] - miss_np[None, :]) % m
+        qs = torch.fft.ifft(1.0 / lams, dim=-1).real       # (B, m)
+        G = qs[:, torch.as_tensor(diff, device=dev)]       # (B, g, g)
+        Lg, info = torch.linalg.cholesky_ex(G)
+        # jnp.linalg.cholesky gives nan where torch's raises: let it flow
+        Lg = torch.where((info == 0)[:, None, None], Lg,
+                         torch.full_like(Lg, torch.nan))
+        logdet = logdet + 2.0 * torch.sum(torch.log(
+            torch.diagonal(Lg, dim1=1, dim2=2)), dim=1)
+        miss_t = torch.as_tensor(miss_np, device=dev)
+    occ_t = torch.as_tensor(occ_np, device=dev)
+
+    def apply_inv(r):                                      # (n, B, p)
+        rt = lams.new_zeros((m,) + tuple(r.shape[1:]))
+        rt[occ_t] = r.to(lams.dtype)
+        u = conv_inv(rt)
+        if g:
+            s = u[miss_t].transpose(0, 1)                  # (B, g, p)
+            tcor = torch.cholesky_solve(s, Lg, upper=False)
+            tt = lams.new_zeros((m,) + tuple(r.shape[1:]))
+            tt[miss_t] = tcor.transpose(0, 1)
+            u = u - conv_inv(tt)
+        return u[occ_t].to(r.dtype)
+
+    def sample(key, p):
+        gg = rnd.normal(key, (m, B, p), device=dev, dtype=lams.dtype)
+        z = torch.fft.ifft(torch.fft.fft(gg, dim=0) * sq, dim=0).real
+        return z[occ_t]
+
+    return SLQPrecond(apply_inv, sample, logdet)
+
+
 class ToeplitzOperator:
     """O(n log n) gram/tangent matvecs for stationary kernels on a grid.
 

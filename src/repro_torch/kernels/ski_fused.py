@@ -1,16 +1,19 @@
-"""The fused SKI sandwich: B5 (gram) and B6 (stacked tangents).
+"""The fused SKI sandwich: B5 (gram), B6 (stacked tangents) and B7 (the
+gram of a bank of members that share one geometry).
 
-Counterparts of ``fused_gram_matvec`` and ``fused_tangent_matvecs`` in
-``repro/kernels/ski_fused.py``.  On near-grid data every point sits in a
-distinct cell of the inducing grid, so W and W^T are banded maps around
-one row gather (``occ``: cell -> point row, ``cell``: point -> cell):
+Counterparts of ``fused_gram_matvec``, ``fused_tangent_matvecs`` and
+``fused_bank_matvec`` in ``repro/kernels/ski_fused.py``.  On near-grid
+data every point sits in a distinct cell of the inducing grid, so W and
+W^T are banded maps around one row gather (``occ``: cell -> point row,
+``cell``: point -> cell):
 
     (W K_grid W^T + noise2 I) v = W irfft(lam * rfft(pad(W^T v))) + noise2 v
 
 with lam the real spectrum of the grid covariance's circulant embedding
 (length L, a power of two >= 2 m_grid - 1; the filler between the two
 mirrored halves is don't-care).  The CUDA kernels (``csrc/ski_gram.cu``,
-``csrc/ski_tangent.cu``, FFT in ``csrc/ski_fft.cuh``) do the whole
+``csrc/ski_tangent.cu``, ``csrc/ski_bank.cu``, FFT in
+``csrc/ski_fft.cuh``) do the whole
 sandwich with a hand-written FFT; see ``csrc/ski_fft.cuh`` for the design
 and what bounds it on an H100.  The spectrum is built outside the kernel
 (:func:`spectrum`), once per theta and solve, on ``torch.fft``; natural
@@ -197,17 +200,29 @@ def fused_tangent_matvecs_plain(geom: FusedSKIGeometry, lams, v):
     return torch.stack(out) if out else v.new_zeros((0,) + tuple(v.shape))
 
 
+def fused_bank_matvec_plain(geom: FusedSKIGeometry, lams, noise2: float,
+                            V):
+    """Member q of V (n, B, c): W irfft(lams[q] * rfft(pad(W^T V[:, q])))
+    + noise2 V[:, q], every member through its own spectrum."""
+    t = geom.tensors(V.device, V.dtype)
+    L, m = geom.L, geom.m_grid
+    uh = torch.fft.rfft(interp_scatter(t["idx"], t["w"], m, V), n=L, dim=0)
+    ku = torch.fft.irfft(lams[:, : L // 2 + 1].T[:, :, None] * uh, n=L,
+                         dim=0, norm="forward")[:m]
+    return interp_gather(t["idx"], t["w"], ku) + noise2 * V
+
+
 # ---------------------------------------------------------------------------
-# B5 / B6 wrappers
+# B5 / B6 / B7 wrappers
 # ---------------------------------------------------------------------------
 
-def _check(geom: FusedSKIGeometry, lams, v):
+def _check(geom: FusedSKIGeometry, lams, v, layout: str = "(n, b)"):
     """Validate a wrapper's inputs; returns the device they lie on."""
-    if v.ndim != 2 or v.shape[0] != geom.n:
-        raise ValueError(f"v must be (n, b) with n = {geom.n}, got "
+    if v.ndim != layout.count(",") + 1 or v.shape[0] != geom.n:
+        raise ValueError(f"v must be {layout} with n = {geom.n}, got "
                          f"{tuple(v.shape)}")
     if lams.ndim != 2 or lams.shape[1] != geom.L:
-        raise ValueError(f"spectra must be (m_dirs, {geom.L}), got "
+        raise ValueError(f"spectra must be (rows, {geom.L}), got "
                          f"{tuple(lams.shape)}")
     if v.device != lams.device:
         raise ValueError(f"v and the spectrum must be on one device, got "
@@ -230,7 +245,8 @@ def fused_gram_matvec(geom: FusedSKIGeometry, lam, noise2: float, v):
     dev = _check(geom, lam[None], v)
     if dev.type == "cpu":
         return fused_gram_matvec_plain(geom, lam, noise2, v)
-    return _launch("ski_gram", geom, lam[None], noise2, v)[0]
+    return _launch("ski_gram", geom, lam[None], noise2, v,
+                   torch.empty_like(v), B=1, c=v.shape[1], m_dirs=1)
 
 
 def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
@@ -241,30 +257,46 @@ def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
     dev = _check(geom, lams, v)
     if dev.type == "cpu":
         return fused_tangent_matvecs_plain(geom, lams, v)
-    return _launch("ski_tangent", geom, lams, 0.0, v)
+    return _launch("ski_tangent", geom, lams, 0.0, v,
+                   v.new_empty((lams.shape[0],) + tuple(v.shape)), B=1,
+                   c=v.shape[1], m_dirs=lams.shape[0])
 
 
-def _launch(name, geom, lams, noise2, v):
-    sfx = _cuda.dtype_suffix(v.dtype)
-    n, b = int(v.shape[0]), int(v.shape[1])
-    m_dirs = int(lams.shape[0])
-    out = torch.empty((m_dirs, n, b), dtype=v.dtype, device=v.device)
-    if n == 0 or b == 0 or m_dirs == 0:
+def fused_bank_matvec(geom: FusedSKIGeometry, lams, noise2: float, V):
+    """B7: the bank gram, member q of V (n, B, c) times
+    (W K_q W^T + noise2 I), one launch: (n, B, c).  ``lams`` (B, L) are
+    the members' spectra from :func:`spectrum`; all share the geometry."""
+    dev = _check(geom, lams, V, "(n, B, c)")
+    if lams.shape[0] != V.shape[1]:
+        raise ValueError(f"one spectrum per member: {lams.shape[0]} "
+                         f"spectra for B = {V.shape[1]}")
+    if dev.type == "cpu":
+        return fused_bank_matvec_plain(geom, lams, noise2, V)
+    return _launch("ski_bank", geom, lams, noise2, V, torch.empty_like(V),
+                   B=V.shape[1], c=V.shape[2], m_dirs=1)
+
+
+def _launch(name, geom, lams, noise2, v, out, *, B, c, m_dirs):
+    """One launch of B5, B6 or B7 into ``out``: v holds B members of c
+    columns each (B = 1 for B5 and B6), lams one spectrum per direction
+    (B6) or per member (B7)."""
+    if out.numel() == 0:
         return out
     t = geom.tensors(v.device, v.dtype)
-    cols = m_dirs * ((b + 1) // 2)
+    cols = m_dirs * B * ((c + 1) // 2)
     if cols > 65535:
-        raise ValueError(f"m_dirs * ceil(b / 2) = {cols} packed columns; "
-                         f"one launch takes at most 65535")
+        raise ValueError(f"{cols} packed columns (directions x members x "
+                         f"ceil(columns / 2)); one launch takes at most "
+                         f"65535")
     # two ping-pong buffers of (cols, L) complex values
     scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
                           device=v.device)
-    args = [n, geom.m_grid, geom.L, geom.offs[0], len(geom.offs),
-            t["occ"].data_ptr(), t["wcell"].data_ptr(),
-            t["cell"].data_ptr(), lams.data_ptr(),
-            float(noise2) if name == "ski_gram" else m_dirs]
-    args += [v.data_ptr(), b, out.data_ptr(), scratch[0].data_ptr(),
-             scratch[1].data_ptr(), _cuda.stream_ptr(v.device)]
-    _cuda.call(f"{name}_{sfx}", *args)
+    _cuda.call(f"{name}_{_cuda.dtype_suffix(v.dtype)}", int(v.shape[0]),
+               geom.m_grid, geom.L, geom.offs[0], len(geom.offs),
+               t["occ"].data_ptr(), t["wcell"].data_ptr(),
+               t["cell"].data_ptr(), lams.data_ptr(), int(m_dirs),
+               float(noise2), v.data_ptr(), int(B), int(c), out.data_ptr(),
+               scratch[0].data_ptr(), scratch[1].data_ptr(),
+               _cuda.stream_ptr(v.device))
     _cuda.LAUNCHES[name] += 1
     return out

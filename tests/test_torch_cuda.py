@@ -1,4 +1,4 @@
-"""The CUDA kernels B1, B2, B4, B5 and B6 against their plain PyTorch
+"""The CUDA kernels B1, B2, B4, B5, B6 and B7 against their plain PyTorch
 versions.
 
 These tests need a card and skip without one.  They import neither JAX nor
@@ -137,3 +137,52 @@ def test_cuda_ski_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
         tsf.fused_gram_matvec(geom, lam, 0.0, v.to(torch.float16))
     with pytest.raises(ValueError, match="one device"):
         tsf.fused_gram_matvec(geom, lam.cpu(), 0.0, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("B,c", [(1, 1), (4, 1), (4, 8), (4, 9), (20, 9)])
+def test_cuda_bank_kernel_matches_plain(cuda_device, dtype, tol, B, c):
+    """B7 against its plain (torch.fft) version, one launch per call; at
+    B = 1 against B5 on the same inputs."""
+    op = _ski_geometry()
+    geom = op.fused_geom
+    grid = topers.ToeplitzOperator("k2", op.grid)
+    base = torch.tensor(THETAS[("k2", "mid")], dtype=torch.float64)
+    step = torch.zeros_like(base)
+    step[0] = 0.05                     # member q: the window moved 0.05 q
+    lams = torch.stack([tsf.spectrum(grid.first_column(
+        base + q * step), geom) for q in range(B)])
+    rng = np.random.default_rng(B * 100 + c)
+    V = torch.tensor(rng.standard_normal((geom.n, B, c)), device=cuda_device,
+                     dtype=dtype)
+    lams = lams.to(cuda_device, dtype)
+    _cuda.reset_launches()
+    got = tsf.fused_bank_matvec(geom, lams, 1e-4, V)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ski_bank"] == 1 and got.shape == V.shape
+    assert _relerr(got, tsf.fused_bank_matvec_plain(geom, lams, 1e-4, V)) \
+        < tol
+    if B == 1:
+        one = tsf.fused_gram_matvec(geom, lams[0], 1e-4, V[:, 0].contiguous())
+        assert _relerr(got[:, 0], one) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_bank_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    op = _ski_geometry(101)
+    geom = op.fused_geom
+    lams = torch.zeros((2, geom.L), device=cuda_device, dtype=torch.float64)
+    V = torch.zeros((geom.n, 2, 4), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsf.fused_bank_matvec(geom, lams, 0.0, V[:, :, ::2])
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_bank_matvec(geom, lams.cpu(), 0.0, V)
+    # 65536 packed columns: one more than a launch takes
+    wide = torch.zeros((geom.n, 1, 2 * 65536), device=cuda_device,
+                       dtype=torch.float64)
+    _cuda.reset_launches()
+    with pytest.raises(ValueError, match="65535"):
+        tsf.fused_bank_matvec(geom, lams[:1], 0.0, wide)
+    assert _cuda.LAUNCHES["ski_bank"] == 0

@@ -12,6 +12,8 @@ from repro_torch import gp as tgp
 from repro_torch.core import engine as teng
 from repro_torch.core import iterative as tit
 from repro_torch.core.covariances import resolve
+from repro_torch.gp import batch as tbatch
+from repro_torch.gp.compare import batchable
 from repro_torch.kernels import _cuda
 from repro_torch.kernels import kernel_matvec as tkm
 from repro_torch.kernels import kernel_tile as tkt
@@ -78,6 +80,9 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tgp.GP.bind(_spec(), x, y)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tgp.compare([_spec("k1"), _spec("k2")], x, y)
+    near = _near(700)                  # the batched bank's path
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgp.compare([_spec("k1"), _spec("k2")], near, np.sin(near))
     gp = tgp.GP.bind(_spec(), x, y, device="cpu")
     assert gp.x.device.type == "cpu" and gp.x.dtype == torch.float64
 
@@ -101,6 +106,13 @@ def test_cpu_tensors_never_launch_a_kernel():
                          opts=ski.spec.solver.opts, op=ski.op)
     teng.profiled_grad(s)
     ski.predict(near[::40], theta=theta)
+    # the bank: B7 takes its plain version on the CPU
+    bank = tbatch.BankOperator(("k1", "k1"), torch.tensor(near), 0.1, 1e-8)
+    assert bank.fused
+    out = bank.bind_matvec(torch.stack([theta, theta + 0.1]),
+                           torch.float64)(torch.ones(bank.n, 2, 3,
+                                                     dtype=torch.float64))
+    assert out.shape == (bank.n, 2, 3)
     assert sum(_cuda.LAUNCHES.values()) == 0
     assert not _cuda.KERNELS.fns       # nothing was built either
 
@@ -126,6 +138,15 @@ def test_wrappers_reject_devices_they_cannot_serve():
     with pytest.raises(ValueError, match="one device"):
         tsf.fused_gram_matvec(geom, lam.to("meta"), 0.0, vv)
     assert tsf.fused_gram_matvec(geom, lam, 0.0, vv).shape == (geom.n, 2)
+    lams = lam[None].expand(2, -1).contiguous()
+    V = torch.zeros((geom.n, 2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tsf.fused_bank_matvec(geom, lams.to("meta"), 0.0, V.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_bank_matvec(geom, lams.to("meta"), 0.0, V)
+    with pytest.raises(ValueError, match="one spectrum per member"):
+        tsf.fused_bank_matvec(geom, lams[:1], 0.0, V)
+    assert tsf.fused_bank_matvec(geom, lams, 0.0, V).shape == V.shape
 
 
 def _near(n_full=3000):
@@ -136,7 +157,8 @@ def _near(n_full=3000):
 @pytest.mark.parametrize("what", [
     "backend_dense", "backend_stochastic", "auto_small_n", "auto_huge_n",
     "operator_lowrank", "precond_pivchol", "precond_rank",
-    "composite_kind", "dense_only_kind", "nested_evidence", "batched_bank"])
+    "composite_kind", "dense_only_kind", "nested_evidence", "bank_pivchol",
+    "bank_precond_rank"])
 def test_unported_branches_raise_not_implemented(what):
     x, y = _irregular()
     near = _near()
@@ -161,13 +183,17 @@ def test_unported_branches_raise_not_implemented(what):
         "dense_only_kind": lambda: resolve("periodic"),
         "nested_evidence": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
         .log_evidence(method="nested"),
-        "batched_bank": lambda: tgp.compare([_spec("k1"), _spec("k2")], near,
-                                            np.sin(near), device="cpu"),
+        "bank_pivchol": lambda: tgp.compare(
+            [_spec("k1", precond="pivchol"), _spec("k2", precond="pivchol")],
+            near, np.sin(near), batch="on", device="cpu"),
+        "bank_precond_rank": lambda: tgp.compare(
+            [_spec("k1", precond_rank=8), _spec("k2", precond_rank=8)],
+            near, np.sin(near), batch="on", device="cpu"),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         cases[what]()
-    if what == "batched_bank":
-        assert "batched-bank slice" in str(err.value)
+    if what.startswith("bank_"):
+        assert "the rest of slice S2" in str(err.value)
 
 
 @pytest.mark.parametrize("what", [
@@ -212,6 +238,41 @@ def test_ported_grid_branches_bind(what):
                          device="cpu")
         assert gp.operator_name == "toeplitz"
     assert torch.isfinite(gp.log_likelihood(theta))
+
+
+@pytest.mark.parametrize("grid", ["near", "exact"])
+def test_batched_bank_binds_and_runs(grid, monkeypatch):
+    """compare(batch="auto") on a grid runs the bank: a near grid binds
+    the fused bank (B7; its plain version here) with the circulant
+    preconditioner and the masked-circulant SLQ, an exact grid the
+    unfused Toeplitz bank with the Strang SLQ."""
+    x = _near(700) if grid == "near" else np.arange(600.0)
+    specs = [_spec(k, precond="circulant") for k in ("k1", "se")]
+    assert batchable(specs, x)
+    bank = tbatch.BankOperator(("k1", "se"), torch.tensor(x), 0.1, 1e-8)
+    assert bank.structure == grid and bank.fused == (grid == "near")
+    assert bank.resolve_precond(specs[0].solver.opts) == "circulant"
+    thetas = torch.tensor([[5.0, 2.0, 0.0], [2.0, 0.0, 0.0]])
+    assert bank.bind_slq_precond(thetas, torch.float64) is not None
+    if grid == "near":
+        # the default policy at n > 2048 with sigma_n = 0.01: circulant
+        big = tbatch.BankOperator(("k1", "se"), torch.tensor(_near()), 0.01,
+                                  1e-8)
+        assert big.n > 2048 and big.fused
+        assert big.resolve_precond(teng.SolverOpts(precond="auto")) \
+            == "circulant"
+    trained = []
+    train = tbatch.train_bank
+
+    def spy(*args, **kwargs):
+        trained.append(train(*args, **kwargs))
+        return trained[-1]
+
+    monkeypatch.setattr(tbatch, "train_bank", spy)
+    reports = tgp.compare(specs, x, np.sin(x / 7.0), key=0, device="cpu")
+    assert len(trained) == 1 and trained[0].bank.fused == (grid == "near")
+    assert [r.name for r in reports] == ["k1", "se"]
+    assert all(np.isfinite(r.log_p_max) for r in reports)
 
 
 def test_irregular_data_binds_the_tile_operator():
