@@ -1,21 +1,24 @@
 """Drive the PyTorch/CUDA port on one card and check it.
 
     python3 chip_smoke.py [--seed S] [--budget committed|planned] [--json PATH]
-                          [--six-month SIGMA_N,STARTS,ITERS,SCAN]
+                          [--six-month SIGMA_N,STARTS,ITERS,SCAN[,MONTHS]]
+                          [--nd]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU.  It builds
 the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
 started together) and then:
 
-  1. kernel phase: each kernel of the three paths (B1 tile_matvec, B2
+  1. kernel phase: each kernel of the four paths (B1 tile_matvec, B2
      tile_tangent, B4 tile_matrix; B5 ski_gram, B6 ski_tangent; B7
-     ski_bank) at the shapes its workflow gives it, held against its
-     plain PyTorch version on the same inputs (float64, and one float32
-     case of B5, B6 and B7), and timed (CUDA events, median of repeats)
-     beside the plain version and the least time the card could take
-     (the roofline bound below); B5 is also timed against its plain
-     version at n ~ 600, 2000 and 7080 (where the card's own crossover
-     lies), and B7 at B = 1 is held against B5 on the same inputs;
+     ski_bank; B8 tile_matvec_nd, B9 tile_tangent_nd, B10 ski_gram_2d,
+     B11 ski_tangent_2d) at the shapes its workflow gives it, held
+     against its plain PyTorch version on the same inputs (float64, and
+     one float32 case of B5, B6, B7, B10 and B11), and timed (CUDA
+     events, median of repeats) beside the plain version and the least
+     time the card could take (the roofline bound below); B5 is also
+     timed against its plain version at n ~ 600, 2000 and 7080 (where the
+     card's own crossover lies), and B7 at B = 1 is held against B5 on
+     the same inputs;
   2. irregular phase: the paper's workflow through the front door on one
      year of hourly-scale irregular sampling (n = 8760, the tile
      operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
@@ -38,16 +41,45 @@ started together) and then:
      just after, and each stage prints how its CG solves ended (tolerance
      or cg_max_iter) and the eigenvalues of every Laplace Hessian it
      formed;
-  4. sequential vs bank: a 6-month gappy record (n ~ 1770, the iterative
-     backend pinned, sigma_n = 0.03) through compare(batch="off") and
+  4. sequential vs bank: a 3-month gappy record (n ~ 885, the iterative
+     backend pinned, sigma_n = 0.03; 6 months, n ~ 1770, until the N-D
+     phase needed its time) through compare(batch="off") and
      compare(batch="auto") on the same data and key; both must give
      finite ln Z and pick the same model; ln B of both and their
      difference are printed;
-  5. small-input checks: ln P_max and its gradient on the card against
+  5. N-D phase: a gappy spatio-temporal field (the recipe of
+     examples/spatiotemporal.py on a 128 x 64 time x space grid, spacings
+     (0.5, 0.25), 15% of the records dropped, sigma_n = 0.05, n ~ 6960),
+     "se*matern32", the default policy (iterative at n > 2048, the
+     per-axis data-dependent box, precond "auto", no scan) with 2 starts
+     of 25 steps, in three stages, the launch counts set to 0 before each
+     and read after:
+       - product SKI (fused, B10/B11; circulant CG, masked-circulant
+         SLQ): bind -> fit -> log_evidence -> compare(["se*se",
+         "se*matern32"]) with the default batch="auto" (the multi-axis
+         bank, the unfused Kronecker cycle on torch.fft) -> predict at
+         512 off-grid points with variance and cross="interp";
+       - Kronecker: the same field with no drops (n = 8192): bind -> fit
+         (one start, 15 steps) -> predict (the mean is B8, the cross
+         block B4 per factor);
+       - irregular (n, 2): 4096 uniform points in the same box, the
+         product tiles (CG on B8, gradients on B9): bind -> fit (one
+         start, 15 steps) -> predict;
+     each stage prints its wall-clock, CG stops and Laplace Hessian
+     eigenvalues, and the phase fails unless B10 and B11 ran in the
+     first stage and B8 and B9 in the third; after the product-SKI stage
+     its answers at the fitted peak are held against the exact GP as in
+     phase 3 (`nd_at_peak`: a diverging cut solve fails the run), and the
+     same solves run behind the port's CG preconditioner, the JAX
+     package's (no noise in its spectrum) and none, cut at cg_max_iter
+     and at ten times it;
+  6. small-input checks: ln P_max and its gradient on the card against
      the port's CPU path (plain PyTorch) with the same probes, on an
      irregular input, a gappy record (SKI) and its un-dropped grid
-     (Toeplitz); and the bank objective's values and gradients on a
-     gappy record (B7) and on its grid (the Toeplitz bank).
+     (Toeplitz), a gappy 2-D field (product SKI), its full grid
+     (Kronecker) and scattered (n, 2) points (the product tiles); and
+     the bank objective's values and gradients on a gappy record (B7)
+     and on its grid (the Toeplitz bank).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
@@ -64,26 +96,43 @@ B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V; B2
 counts the value and its closed-form gradient over the kind's natural
 slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles with V,
 since the m directions can be applied afterwards to the (NS, n1, b)
-result at a cost independent of n2.  B5 and B6 move v and the output
-once, the L/2 + 1 distinct values of each spectrum (real and even), the
+result at a cost independent of n2.  B8 counts the d factor values and
+d - 1 products, and 2 b with V; B9 each factor's value and gradient, the
+(d - 1) products of each of the sum_a NS_a gradient tiles with the other
+factors, and 2 (sum_a NS_a) b with V.  B5 and B6 move v and the output
+once, the E/2 + 1 distinct values of each spectrum (real and even), the
 n s stencil weights of the sampled points and their n cell indices, and
-do the FFTs (5 L log2 L per complex column and transform, a complex
-column carrying two real ones: one forward and one inverse per b / 2 for
-B5, one forward and m inverse for B6; the zero half an odd b pads is not
-counted), the spectrum multiply and the two stencils (2 s per entry
-each), at the fp64 (34 TFLOP/s) or fp32 (67 TFLOP/s) rate outside the
-tensor cores.  B7 counts the same per member: V and the output (n B c
-each), the B distinct half-spectra, the stencil, and the FFT pair of
-B c / 2 complex columns.
+do the transforms, the spectrum multiply and the two stencils (2 s per
+entry each), at the fp64 (34 TFLOP/s) or fp32 (67 TFLOP/s) rate outside
+the tensor cores.  The transforms count at the least circulant embedding
+E = 2 m - 2 of the m-cell grid (the kernels' power-of-two L is their
+layout), 5 E log2 E per complex column and transform, a complex column
+carrying two real ones: one forward and one inverse per b / 2 for B5,
+one forward and m inverse for B6; the zero half an odd b pads is not
+counted.  B7 counts the same per member: V and the output (n B c each),
+the B distinct half-spectra, the stencil, and the transform pair of
+B c / 2 complex columns.  B10 and B11 count the same on the m1 x m2
+cells: v and the output, the E_a / 2 + 1 distinct values of each axis
+spectrum per direction, the n s joint weights and n cell indices; per
+complex plane, a forward 2-D transform that runs its first axis over the
+occupied lines alone and its second over the E of the first, and an
+inverse that yields only the m1 m2 cells (the same count, mirrored;
+fft_plane_ops, the cheaper axis order), the outer-product multiply (3
+per point of the E1 x E2 plane), the stencils and the noise.  In 1-D
+that rule is the plain count: B5-B7 and B10/B11 count the same way.
 
 The SKI cell follows the repository's ``woods_hole_like`` recipe (five
 tidal constituents with their periods and amplitudes, random phases, a
 spring/neap envelope, noise 0.01, mean removed) and ``drop_random_hours``,
 in numpy from ``--seed``.
 
-``--six-month SIGMA_N,STARTS,ITERS,SCAN`` builds the kernels and runs only
-check 4 at that budget (model noise, restarts per model, NCG steps, scan
-points of the sequential fit; 0 for none): how its budget was chosen.
+``--six-month SIGMA_N,STARTS,ITERS,SCAN[,MONTHS]`` builds the kernels and
+runs only check 4 at that budget (model noise, restarts per model, NCG
+steps, scan points of the sequential fit, 0 for none; the record's
+length, SEQ_VS_BANK_MONTHS by default): how its budget was chosen.
+
+``--nd`` builds the kernels and runs only the kernel cases of B8-B11 and
+check 5.
 
 ``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
@@ -94,6 +143,7 @@ and the phase's line shows why (Hessian eigenvalues, CG stops).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import pathlib
@@ -140,16 +190,19 @@ N_SLOTS = {"k1": 3, "k2": 5}   # natural slots each kind's tile depends on
 N = 8760                    # one year of hourly-scale sampling
 N_STAR = 512
 SIGMA_N = 0.1
-# NCG budgets of the workflow phase, 2 restarts each.  committed: 25 steps
-# from the best of a 64-point scan inside the tidal-band boxes; with 16
-# scan points, starts of the compare stage landed outside the comb peaks at
-# n = 8760 and never reached a positive definite Hessian.  planned: 5
-# steps from uniform starts in the data-dependent box.
-BUDGETS = {"committed": dict(max_iters=25, scan_points=64, tidal_boxes=True),
+# NCG budgets of the workflow phase, 2 restarts each.  committed: 15 steps
+# (25 until the N-D phase needed the time) from the best of a 64-point
+# scan inside the tidal-band boxes; with 16 scan points, starts of the
+# compare stage landed outside the comb peaks at n = 8760 and never
+# reached a positive definite Hessian.  planned: 5 steps from uniform
+# starts in the data-dependent box.
+BUDGETS = {"committed": dict(max_iters=15, scan_points=64, tidal_boxes=True),
            "planned": dict(max_iters=5, scan_points=None, tidal_boxes=False)}
 # max-abs error over max-abs against the plain version
 TOL = {"tile_matvec": 1e-12, "tile_tangent": 1e-11, "tile_matrix": 1e-12,
-       "ski_gram": 1e-12, "ski_tangent": 1e-12, "ski_bank": 1e-12}
+       "ski_gram": 1e-12, "ski_tangent": 1e-12, "ski_bank": 1e-12,
+       "tile_matvec_nd": 1e-12, "tile_tangent_nd": 1e-12,
+       "ski_gram_2d": 1e-12, "ski_tangent_2d": 1e-12}
 TOL_F32 = 1e-5
 SOURCES = {
     "tile_matvec": ("src/repro_torch/csrc/tile_matvec.cu",
@@ -164,9 +217,42 @@ SOURCES = {
                     "src/repro/kernels/ski_fused.py:712"),
     "ski_bank": ("src/repro_torch/csrc/ski_bank.cu",
                  "src/repro/kernels/ski_fused.py:789"),
+    "tile_matvec_nd": ("src/repro_torch/csrc/tile_matvec_nd.cu",
+                       "src/repro/kernels/kernel_matvec.py:368"),
+    "tile_tangent_nd": ("src/repro_torch/csrc/tile_tangent_nd.cu",
+                        "src/repro/kernels/kernel_matvec.py:402"),
+    "ski_gram_2d": ("src/repro_torch/csrc/ski_gram_2d.cu",
+                    "src/repro/kernels/ski_fused.py:1053"),
+    "ski_tangent_2d": ("src/repro_torch/csrc/ski_tangent_2d.cu",
+                       "src/repro/kernels/ski_fused.py:1096"),
 }
 TILE_KERNELS = ("tile_matvec", "tile_tangent", "tile_matrix")
 SKI_KERNELS = ("ski_gram", "ski_tangent", "ski_bank")
+ND_KERNELS = ("tile_matvec_nd", "tile_tangent_nd", "ski_gram_2d",
+              "ski_tangent_2d", "tile_matrix")
+
+# the N-D cell: examples/spatiotemporal.py's make_field on a 128 x 64 time x
+# space grid, spacings (0.5, 0.25), 15% of the records dropped, sigma_n
+# 0.05 (n / sigma_n^2 ~ 2.8e6 >= 1e6, so precond="auto" takes the
+# circulant preconditioner); the irregular stage draws N_ND_IRREGULAR
+# uniform points in the same box
+FIELD_SHAPE = (128, 64)
+FIELD_SPACING = (0.5, 0.25)
+FIELD_DROP = 0.15
+FIELD_SIGMA_N = 0.05
+N_ND_IRREGULAR = 4096
+ND_KIND = "se*matern32"
+ND_MODELS = ("se*se", "se*matern32")
+# a point inside the field's box: time lengthscale 1.5, space 0.8
+ND_THETA = {"se*matern32": [math.log(1.5), math.log(0.8)],
+            "k2*se": [math.log(20.0), math.log(7.9), 0.0, math.log(15.7),
+                      0.0, math.log(0.8)]}
+# NCG budgets of the N-D stages: the product-SKI stage 2 starts of 25
+# steps under the default policy (no scan: a 64-point scan cost 35 s there
+# on the card); the Kronecker and irregular stages, which exist to put
+# their operators and kernels on the workflow's path, one start of
+# ND_SHORT_ITERS steps
+ND_SHORT_ITERS = 15
 
 # the SKI cell: the woods_hole_like recipe on two years of the 2 h cadence
 LUNAR_MONTH_H = 27.321661 * 24.0
@@ -177,9 +263,9 @@ TIDAL_SIGMA_N = 0.01
 CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
                 ("N2", 12.6583475, 0.24), ("K1", 23.9344721, 0.14),
                 ("O1", 25.8193417, 0.11))
-# the 6-month sequential-vs-bank check: NCG steps, scan points (the
-# sequential path's; the bank starts from uniform draws) and the model's
-# noise.  At the record's own sigma_n = 0.01 the check takes about 580 s
+# the sequential-vs-bank check: NCG steps, scan points (the sequential
+# path's; the bank starts from uniform draws) and the model's noise, chosen
+# on a 6-month record.  At the record's own sigma_n = 0.01 it took 580 s
 # on the card (CG cut in most solves), and the bank's two uniform starts
 # per model leave k1 far below the sequential path's ln P of 1285: with
 # the port's draws at 331 on the card (no positive definite Hessian, nan
@@ -190,6 +276,10 @@ CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
 SIX_MONTH_ITERS = 25
 SIX_MONTH_SCAN = 64
 SIX_MONTH_SIGMA_N = 0.03
+# the record of check 4: 3 months since the N-D phase (6 months took 201 s
+# on the card, 3 months 169 s; at 2 months the bank's k1 ended where its
+# Hessian is not positive definite, a nan ln Z)
+SEQ_VS_BANK_MONTHS = 3
 # points the SKI kernel cases run at (flat coordinates, inside the boxes)
 SKI_THETA = {"k1": [math.log(300.0), math.log(12.42), 0.0],
              "k2": [math.log(300.0), math.log(12.42), 0.0, math.log(23.93),
@@ -233,27 +323,95 @@ def bound(n_bytes: float, eval_ops: float, mma_flops: float,
                                        else "operations")
 
 
+def embed_len(m: int) -> int:
+    """The least circulant embedding of an m x m symmetric Toeplitz
+    block: 2 m - 2 points (the port's L, a power of two >= 2 m - 1, is a
+    layout choice, not part of the function)."""
+    return max(2 * m - 2, 1)
+
+
+def fft_ops(E: int) -> float:
+    """Operations of one complex transform of length E, 5 E log2 E."""
+    return 5.0 * E * math.log2(E) if E > 1 else 0.0
+
+
+def fft_plane_ops(ms) -> float:
+    """Operations of one forward transform of an m_1 (x) ... cell block
+    embedded in the (E_1, ...) plane, counting only the lines that hold
+    data: the first axis transformed runs over the occupied lines alone,
+    each later one over the lines the earlier ones filled; the cheaper
+    axis order.  The inverse that yields only the m cells costs the same
+    (the mirrored order).  In 1-D this is fft_ops(E)."""
+    Es = [embed_len(m) for m in ms]
+    best = None
+    for order in itertools.permutations(range(len(ms))):
+        done, ops_ = set(), 0.0
+        for a in order:
+            lines = 1
+            for b in range(len(ms)):
+                if b != a:
+                    lines *= Es[b] if b in done else ms[b]
+            ops_ += lines * fft_ops(Es[a])
+            done.add(a)
+        best = ops_ if best is None else min(best, ops_)
+    return best
+
+
 def ski_bound(geom, b: int, m_dirs: int, dtype, members: int = 1):
     """Roofline bound (ms, what bounds it) of B5 (m_dirs = 0), B6 or B7
     (m_dirs = 0, ``members`` = B, b = c columns each): the bytes of v,
     the output, the distinct half of each real even spectrum, the n s
     weights and the n cell indices (the kernels' (m, s) weight table and
-    m-long cell map are a layout, not part of the function)."""
-    n, L, s = geom.n, geom.L, len(geom.offs)
+    m-long cell map are a layout, not part of the function); the
+    operations of the transforms at the least embedding (fft_plane_ops),
+    the spectrum multiply, the stencils and the noise."""
+    return _ski_bound(geom, (geom.m_grid,), b, m_dirs, dtype, members)
+
+
+def ski_bound_2d(geom, b: int, m_dirs: int, dtype):
+    """ski_bound of B10 (m_dirs = 0) or B11 on the m1 x m2 cells: the
+    per-direction spectra are the two real even axis spectra, and the
+    transforms count only the lines that hold data or output
+    (fft_plane_ops), as B5-B7's do."""
+    return _ski_bound(geom, geom.shape, b, m_dirs, dtype, 1)
+
+
+def _ski_bound(geom, ms, b, m_dirs, dtype, members):
+    n, s = geom.n, len(geom.offs)
     item = torch.finfo(dtype).bits // 8
     outs = max(m_dirs, 1)
     nb = n * b * members
-    n_bytes = (item * (nb + outs * nb + n * s
-                       + outs * members * (L // 2 + 1)) + 4 * n)
+    Es = [embed_len(m) for m in ms]
+    spectra = sum(E // 2 + 1 for E in Es)
+    n_bytes = item * (nb + outs * nb + n * s + outs * members * spectra) \
+        + 4 * n
     # a complex transform carries two real columns: b / 2 per member (the
     # zero half that an odd b pads is layout, not work)
-    cols = members * b / 2.0
-    fft = 5.0 * L * math.log2(L)
-    ops_ = (fft * cols * (1 + outs) + 2.0 * L * cols * outs
-            + 2.0 * s * nb * (1 + outs) + (2.0 * nb if not m_dirs
-                                           else 0.0))
+    planes = members * b / 2.0
+    points = math.prod(Es)
+    # the spectrum multiply: complex by real, times the outer product's
+    # d - 1 products
+    mul = 2.0 + (len(ms) - 1)
+    ops_ = (fft_plane_ops(ms) * planes * (1 + outs)
+            + mul * points * planes * outs
+            + 2.0 * s * nb * (1 + outs) + (2.0 * nb if not m_dirs else 0.0))
     peak = FP64_PEAK if dtype == torch.float64 else FP32_PEAK
     return bound(n_bytes, ops_, 0.0, peak)
+
+
+def tile_nd_bound(kinds, n1, n2, b, m=0):
+    """Roofline bound (ms, what bounds it) of B8 (m = 0) or B9 (m
+    directions) on (n, d) coordinates, float64."""
+    d = len(kinds)
+    entries = n1 * n2
+    n_bytes = 8.0 * (d * (n1 + n2) + n2 * b + max(m, 1) * n1 * b
+                     + 8 * d * (1 + m))
+    if not m:
+        return bound(n_bytes, entries * (sum(EVAL_OPS[k] for k in kinds)
+                                         + d - 1), 2.0 * entries * b)
+    ns = sum(N_SLOTS.get(k, 1) for k in kinds)
+    return bound(n_bytes, entries * (sum(GRAD_OPS[k] for k in kinds)
+                                     + ns * (d - 1)), 2.0 * entries * ns * b)
 
 
 def make_data(seed: int, dev):
@@ -313,6 +471,37 @@ def tidal_boxes():
                           np.array([w[1], p1[1], s[1]])),
             "k2": FlatBox(np.array([w[0], p1[0], s[0], p2[0], s[0]]),
                           np.array([w[1], p1[1], s[1], p2[1], s[1]]))}
+
+
+def make_field(seed: int, shape=FIELD_SHAPE, drop=FIELD_DROP):
+    """``make_field`` of examples/spatiotemporal.py in numpy: a smooth-in-
+    time, rougher-in-space field sin(0.8 t) cos(1.6 s) on the product grid
+    of spacings (0.5, 0.25), each record dropped with probability
+    ``drop``, noise FIELD_SIGMA_N.  Returns (x (n, 2), y, xstar (512, 2)
+    off-grid test points inside the field)."""
+    t = FIELD_SPACING[0] * np.arange(shape[0])
+    s = FIELD_SPACING[1] * np.arange(shape[1])
+    X = np.stack(np.meshgrid(t, s, indexing="ij"), -1).reshape(-1, 2)
+    rng = np.random.default_rng(seed)
+    keep = rng.uniform(size=X.shape[0]) > drop
+    X = X[keep]
+    f = np.sin(0.8 * X[:, 0]) * np.cos(1.6 * X[:, 1])
+    y = f + FIELD_SIGMA_N * rng.standard_normal(X.shape[0])
+    xstar = np.stack([rng.uniform(t[0], t[-1], N_STAR),
+                      rng.uniform(s[0], s[-1], N_STAR)], -1)
+    return X, y, xstar
+
+
+def make_scattered_field(seed: int, n: int = N_ND_IRREGULAR):
+    """n uniform points in the field's box with the same function and
+    noise: scattered (n, 2) data (classify_grid_nd says "irregular")."""
+    rng = np.random.default_rng(seed + 7)
+    hi = [FIELD_SPACING[a] * (FIELD_SHAPE[a] - 1) for a in range(2)]
+    X = rng.uniform([0.0, 0.0], hi, (n, 2))
+    y = np.sin(0.8 * X[:, 0]) * np.cos(1.6 * X[:, 1]) \
+        + FIELD_SIGMA_N * rng.standard_normal(n)
+    xstar = rng.uniform([0.0, 0.0], hi, (N_STAR, 2))
+    return X, y, xstar
 
 
 # ---------------------------------------------------------------------------
@@ -379,14 +568,8 @@ def kernel_phase(x, xstar, dev, rng, seed):
                              3),
             bound_ms=bms, bound_by=by))
     crossover = ski_kernel_cases(cases, dev, rng, seed)
-    for name, rows in cases.items():
-        for row in rows:
-            emit({"kernel_case": name, **row})
-            tol = TOL[name] if row.get("dtype", "float64") == "float64" \
-                else TOL_F32
-            if not row["max_rel_err"] <= tol:
-                raise AssertionError(
-                    f"{name} disagrees with its plain version: {row}")
+    nd_kernel_cases(cases, dev, rng, seed)
+    check_cases(cases, SOURCES)
     return cases, crossover
 
 
@@ -526,6 +709,111 @@ def bank_kernel_cases(cases, dev, rng, seed):
         raise AssertionError(f"B7 at B = 1 disagrees with B5: {rel}")
 
 
+def nd_kernel_cases(cases, dev, rng, seed):
+    """B8 on the irregular (n, 2) stage's points (n = 4096: training CG
+    b = 9, value CG b = 1, predict's mean n1 = 512 b = 1), B9 at m = 2
+    (se*matern32) and m = 6 (k2*se) with b = 9; B10 on the product-SKI
+    cell at b = 9 (training CG), 8 (Lanczos), 1 (value CG), 256 (the
+    predict variance chunk) and a float32 case, B11 at m = 2, b = 9 (and
+    float32)."""
+    x_np, _, xstar_np = make_scattered_field(seed)
+    x = torch.tensor(x_np, device=dev)
+    xstar = torch.tensor(xstar_np, device=dev)
+    n = x.shape[0]
+    for kind in ("se*matern32", "k2*se"):
+        kinds = ops.split_kind(kind)
+        theta = torch.tensor(ND_THETA[kind], dtype=torch.float64)
+        p = ops.natural_params_nd(kind, theta).to(dev)
+        pd = ops.natural_tangents_nd(kind, theta).to(dev)
+        shapes = ((n, 9), (n, 1), (N_STAR, 1)) if kind == ND_KIND else ()
+        for n1, b in shapes:
+            x1 = x if n1 == n else xstar
+            v = torch.tensor(rng.standard_normal((n, b)), device=dev)
+            got = km.tile_matvec_nd(kinds, p, x1, x, v)
+            want = km.tile_matvec_nd_plain(kinds, p, x1, x, v)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            bms, by = tile_nd_bound(kinds, n1, n, b)
+            cases["tile_matvec_nd"].append(dict(
+                kind=kind, n1=n1, n2=n, b=b, max_abs_err=err,
+                max_rel_err=rel,
+                ms=time_ms(lambda: km.tile_matvec_nd(kinds, p, x1, x, v), 10),
+                plain_ms=time_ms(lambda: km.tile_matvec_nd_plain(
+                    kinds, p, x1, x, v), 3),
+                bound_ms=bms, bound_by=by))
+        m = pd.shape[0]
+        v = torch.tensor(rng.standard_normal((n, 9)), device=dev)
+        got = km.tile_stacked_tangent_matvec_nd(kinds, p, pd, x, x, v)
+        want = km.tile_stacked_tangent_matvec_nd_plain(kinds, p, pd, x, x, v)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        bms, by = tile_nd_bound(kinds, n, n, 9, m)
+        cases["tile_tangent_nd"].append(dict(
+            kind=kind, n1=n, n2=n, b=9, m=m, max_abs_err=err,
+            max_rel_err=rel,
+            ms=time_ms(lambda: km.tile_stacked_tangent_matvec_nd(
+                kinds, p, pd, x, x, v), 10),
+            plain_ms=time_ms(lambda: km.tile_stacked_tangent_matvec_nd_plain(
+                kinds, p, pd, x, x, v), 3),
+            bound_ms=bms, bound_by=by))
+    xf, _, _ = make_field(seed)
+    op = opers.select_operator(ND_KIND, torch.tensor(xf, device=dev),
+                               FIELD_SIGMA_N, 1e-8)
+    geom = op.fused_geom
+    theta = torch.tensor(ND_THETA[ND_KIND], dtype=torch.float64, device=dev)
+    for dtype, shapes in ((torch.float64, (9, 8, 1, 256)),
+                          (torch.float32, (9,))):
+        lams = tuple(lam.to(dtype) for lam in sf.spectrum_nd(
+            op._kron.first_columns(theta), geom))
+        for b in shapes:
+            v = torch.tensor(rng.standard_normal((geom.n, b)), device=dev,
+                             dtype=dtype)
+            got = sf.fused_gram_matvec_nd(geom, lams, op.noise2, v)
+            want = sf.fused_gram_matvec_nd_plain(geom, lams, op.noise2, v)
+            torch.cuda.synchronize()
+            err, rel = errors(got, want)
+            bms, by = ski_bound_2d(geom, b, 0, dtype)
+            cases["ski_gram_2d"].append(dict(
+                kind=ND_KIND, n=geom.n, m_grid=geom.m_grid, L=list(geom.Ls),
+                b=b, dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                max_rel_err=rel,
+                ms=time_ms(lambda: sf.fused_gram_matvec_nd(
+                    geom, lams, op.noise2, v), 20),
+                plain_ms=time_ms(lambda: sf.fused_gram_matvec_nd_plain(
+                    geom, lams, op.noise2, v), 10),
+                bound_ms=bms, bound_by=by))
+        pairs = tuple(pr.to(dtype) for pr in sf.tangent_spectra_nd(
+            op._kron, theta, geom, torch.float64))
+        v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev,
+                         dtype=dtype)
+        got = sf.fused_tangent_matvecs_nd(geom, pairs, v)
+        want = sf.fused_tangent_matvecs_nd_plain(geom, pairs, v)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        m = int(pairs[0].shape[0])
+        bms, by = ski_bound_2d(geom, 9, m, dtype)
+        cases["ski_tangent_2d"].append(dict(
+            kind=ND_KIND, n=geom.n, m_grid=geom.m_grid, L=list(geom.Ls), b=9,
+            m=m, dtype=str(dtype).split(".")[-1], max_abs_err=err,
+            max_rel_err=rel,
+            ms=time_ms(lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v),
+                       20),
+            plain_ms=time_ms(lambda: sf.fused_tangent_matvecs_nd_plain(
+                geom, pairs, v), 10),
+            bound_ms=bms, bound_by=by))
+
+
+def check_cases(cases, names):
+    for name in names:
+        for row in cases[name]:
+            emit({"kernel_case": name, **row})
+            tol = TOL[name] if row.get("dtype", "float64") == "float64" \
+                else TOL_F32
+            if not row["max_rel_err"] <= tol:
+                raise AssertionError(
+                    f"{name} disagrees with its plain version: {row}")
+
+
 # the case that stands for each kernel in the summary line: the shape the
 # workflow launches most (k2, training CG / gradient, predict cross block)
 HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
@@ -533,7 +821,11 @@ HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
             "tile_matrix": dict(kind="k2"),
             "ski_gram": dict(b=9, dtype="float64"),
             "ski_tangent": dict(kind="k2", dtype="float64"),
-            "ski_bank": dict(B=4, c=9, dtype="float64")}
+            "ski_bank": dict(B=4, c=9, dtype="float64"),
+            "tile_matvec_nd": dict(n1=N_ND_IRREGULAR, b=9),
+            "tile_tangent_nd": dict(kind=ND_KIND),
+            "ski_gram_2d": dict(b=9, dtype="float64"),
+            "ski_tangent_2d": dict(dtype="float64")}
 
 
 def headline(name, rows):
@@ -789,15 +1081,16 @@ def ski_phase(seed):
 
 
 def sequential_vs_bank(seed, sigma_n=SIX_MONTH_SIGMA_N, n_starts=2,
-                       iters=SIX_MONTH_ITERS, scan=SIX_MONTH_SCAN):
-    """A 6-month gappy record (n ~ 1770; at n <= 2048 the "auto" backend
-    would be dense, so the iterative backend is pinned) through
+                       iters=SIX_MONTH_ITERS, scan=SIX_MONTH_SCAN,
+                       months=SEQ_VS_BANK_MONTHS):
+    """A gappy record of ``months`` (3: n ~ 885; at n <= 2048 the "auto"
+    backend would be dense, so the iterative backend is pinned) through
     compare(batch="off") and compare(batch="auto") on the same data and
     key.  Both must give finite ln Z and pick the same model; the two
     ln B differ by the estimators' noise (the paths draw different
     probes and starts).  ``--six-month`` runs it alone at another
     budget."""
-    x_np, y_np, _, n_full = make_tidal_data(seed, months=6)
+    x_np, y_np, _, n_full = make_tidal_data(seed, months=months)
     opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
                           cg_max_iter=400, precond="circulant")
     policy = gp.SolverPolicy(backend="iterative", n_starts=n_starts,
@@ -808,7 +1101,7 @@ def sequential_vs_bank(seed, sigma_n=SIX_MONTH_SIGMA_N, n_starts=2,
                        noise=gp.NoiseModel(sigma_n=sigma_n),
                        solver=policy) for k in ("k1", "k2")]
     key = rnd.key(seed + 2000)
-    out = dict(n=len(x_np), n_full=n_full, sigma_n=sigma_n,
+    out = dict(n=len(x_np), n_full=n_full, months=months, sigma_n=sigma_n,
                n_starts=n_starts, iters=iters, scan=scan)
     for mode in ("off", "auto"):
         _cuda.reset_launches()
@@ -841,32 +1134,184 @@ def sequential_vs_bank(seed, sigma_n=SIX_MONTH_SIGMA_N, n_starts=2,
     return out
 
 
-def check_at_peak(fitted, post, xstar_np, seed):
-    """The SKI phase's answers at its fitted peak against the exact GP.
+def nd_phase(seed):
+    """The N-D grid path in three stages (see the module docstring): the
+    gappy field on product SKI, the full field on the Kronecker operator,
+    scattered (n, 2) points on the product tiles.  Launch counts are set
+    to 0 before each stage group and read after it."""
+    opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
+                          cg_max_iter=400, precond="auto")
+    policy = gp.SolverPolicy(backend="auto", n_starts=2, max_iters=25,
+                             opts=opts)
+    short = policy._replace(n_starts=1, max_iters=ND_SHORT_ITERS)
+    noise = gp.NoiseModel(sigma_n=FIELD_SIGMA_N)
+    specs = [gp.GPSpec(k, noise=noise, solver=policy) for k in ND_MODELS]
+    kfit, kev, kcmp, kkron, kirr = rnd.split(rnd.key(seed + 3000), 5)
+    theta0 = torch.tensor(ND_THETA[ND_KIND], dtype=torch.float64)
+    bound_op = {}
 
-    The phase's CG solves stop at cg_max_iter behind the policy's
+    def info():
+        op = bound_op["op"]
+        pc = it.make_preconditioner(op, theta0.to(op.x.device), opts.precond,
+                                    opts.precond_rank)
+        geom = getattr(op, "fused_geom", None)
+        return dict(operator=op.name, n=op.n,
+                    shape=list(getattr(op, "shape", ()) or ()),
+                    L=list(geom.Ls) if geom is not None else None,
+                    fused=bool(getattr(op, "fused", False)),
+                    precond=eng.select_precond(op, opts),
+                    slq_precond=pc is not None and pc.slq is not None)
+
+    def bind(spec, x, y):
+        def run():
+            s = gp.GP.bind(spec, x, y)
+            bound_op["op"] = s.op
+            return s
+        return run
+
+    out = {}
+    # stage 1: the gappy field on product SKI, the whole workflow
+    x_np, y_np, xstar_np = make_field(seed)
+    stage = Stages("nd_product_ski", ND_KERNELS, info)
+    _cuda.reset_launches()
+    _sync.reset()
+    session = stage("bind", bind(specs[1], x_np, y_np))
+    desc = info()
+    if (session.backend, desc["operator"], desc["fused"], desc["precond"],
+            desc["slq_precond"]) != ("iterative", "product_ski", True,
+                                     "circulant", True):
+        raise AssertionError(f"bound {session!r} ({desc}), expected the "
+                             "iterative backend on the fused product-SKI "
+                             "operator with the circulant preconditioner and "
+                             "the masked-circulant SLQ")
+    fitted = stage("fit", lambda: session.fit(kfit))
+    evidence = stage("log_evidence", lambda: fitted.log_evidence(key=kev))
+    with BankCapture() as cap:
+        reports = stage("compare", lambda: gp.compare(specs, x_np, y_np,
+                                                      key=kcmp))
+    if len(cap.fits) != 1:
+        raise AssertionError("the compare stage did not train one bank")
+    bank = dict(describe_bank(cap.fits[0], opts),
+                launches=stage.launches["compare"],
+                cg_stops=stage.cg_stops["compare"],
+                iters_all=cap.fits[0].iters_all.tolist())
+    emit({"nd_bank": bank})
+    if (bank["structure"], bank["fused"], bank["precond"],
+            bank["slq_precond"]) != ("product", False, "circulant", True):
+        raise AssertionError(f"the compare stage's bank is {bank}, expected "
+                             "the unfused product bank with the circulant "
+                             "preconditioner and the masked-circulant SLQ")
+    post = stage("predict", lambda: fitted.predict(xstar_np,
+                                                   cross="interp"))
+    launches = dict(_cuda.LAUNCHES)
+    syncs = dict(_sync.COUNT)
+    res = fitted.result
+    sf2 = float(res.sigma_f_hat) ** 2
+    lnb = float(gp.log_bayes_factors(reports)[1, 0])
+    out["product_ski"] = dict(
+        field_shape=list(FIELD_SHAPE), drop=FIELD_DROP, seed=seed,
+        **desc, stage_s=stage.s, log_p_max=float(res.log_p_max),
+        theta_hat=res.theta_hat.tolist(), log_p_all=res.log_p_all.tolist(),
+        n_evals=res.n_evals, log_z=float(evidence.log_z),
+        n_modes=evidence.n_modes,
+        compare={r.name: dict(log_z=r.log_z_laplace, log_p_max=r.log_p_max,
+                              theta_hat=r.theta_hat.tolist(),
+                              n_modes=r.n_modes, n_evals=r.n_evals_train)
+                 for r in reports},
+        ln_b_matern32_vs_se=lnb, bank=bank, host_syncs=sum(syncs.values()),
+        launches=launches, stage_launches=stage.launches,
+        var_min=float(post.var.min()), var_max=float(post.var.max()),
+        sigma_f_hat_sq=sf2, cg_stops=stage.cg_stops,
+        hessian_eigenvalues=stage.hessians)
+    emit({"nd_product_ski": out["product_ski"]})
+    check_launched(stage.launches["fit"], ("ski_gram_2d", "ski_tangent_2d"),
+                   "product-SKI fit")
+    check_finite((("ln P_max", res.log_p_max), ("ln Z", evidence.log_z),
+                  ("ln B", lnb))
+                 + tuple((f"compare ln Z ({r.name})", r.log_z_laplace)
+                         for r in reports))
+    check_posterior(post, sf2, FIELD_SIGMA_N, out["product_ski"])
+    # at the peak: against the exact GP, and the port's CG preconditioner
+    # (noise2 in the Kronecker-Strang spectrum) beside the JAX package's
+    # (noise-free) and none
+    op, th = fitted.op, res.theta_hat.to(fitted.x.device)
+    pc = it.make_preconditioner(op, th, opts.precond, opts.precond_rank)
+    t0 = time.perf_counter()
+    out["product_ski"]["at_peak"] = check_at_peak(
+        fitted, post, xstar_np, seed, label="nd_at_peak",
+        variants={"port": pc.apply,
+                  "reference": reference_product_ski_precond(op, th),
+                  "none": None})
+    out["product_ski"]["at_peak_s"] = time.perf_counter() - t0
+
+    # stages 2 and 3: the Kronecker grid and scattered points
+    for name, data, kfit_s, want in (
+            ("kron", make_field(seed, drop=0.0), kkron, "kron"),
+            ("irregular", make_scattered_field(seed), kirr, "pallas")):
+        x_s, y_s, xs_s = data
+        spec = gp.GPSpec(ND_KIND, noise=noise, solver=short)
+        stage = Stages(f"nd_{name}", ND_KERNELS, info)
+        _cuda.reset_launches()
+        session = stage("bind", bind(spec, x_s, y_s))
+        if (session.backend, session.operator_name) != ("iterative", want):
+            raise AssertionError(f"bound {session!r}, expected the iterative "
+                                 f"backend on the {want} operator")
+        fitted = stage("fit", lambda: session.fit(kfit_s))
+        post = stage("predict", lambda: fitted.predict(xs_s))
+        res = fitted.result
+        sf2 = float(res.sigma_f_hat) ** 2
+        out[name] = dict(
+            **info(), stage_s=stage.s,
+            log_p_max=float(res.log_p_max), theta_hat=res.theta_hat.tolist(),
+            n_evals=res.n_evals, launches=dict(_cuda.LAUNCHES),
+            stage_launches=stage.launches, var_min=float(post.var.min()),
+            var_max=float(post.var.max()), sigma_f_hat_sq=sf2,
+            cg_stops=stage.cg_stops)
+        emit({f"nd_{name}": out[name]})
+        check_launched(stage.launches["predict"], ("tile_matvec_nd",),
+                       f"{name} predict")
+        if name == "irregular":
+            check_launched(stage.launches["fit"],
+                           ("tile_matvec_nd", "tile_tangent_nd"),
+                           "irregular (n, 2) fit")
+        check_finite((("ln P_max", res.log_p_max),))
+        check_posterior(post, sf2, FIELD_SIGMA_N, out[name])
+    out["launches"] = {k: sum(out[st]["launches"].get(k, 0) for st in
+                              ("product_ski", "kron", "irregular"))
+                       for k in ND_KERNELS}
+    return out
+
+
+def check_at_peak(fitted, post, xstar_np, seed, label="at_peak",
+                  variants=None):
+    """A SKI cell's answers at its fitted peak against the exact GP.
+
+    The cell's CG solves stop at cg_max_iter behind the policy's
     circulant preconditioner, its ln P carries the SLQ log-det, and its
-    variance the interpolated cross covariance.  On the gappy record W is
-    a one-hot selection, so the SKI gram is the dense K(x, x) + noise2 I:
-    at theta_hat this builds it (B4), factors it (Cholesky on the card)
-    and
-      - fails if a cut solve of [y | 8 probes], made as the phase makes
+    variance the interpolated cross covariance.  On a gappy record or
+    field W is a one-hot selection, so the (product-)SKI gram is the dense
+    K(x, x) + noise2 I: at theta_hat this builds it (B4, once per factor
+    of a composite kind), factors it (Cholesky on the card) and
+      - fails if a cut solve of [y | 8 probes], made as the cell makes
         it, has a larger K-norm error than the zero start in any column
         (preconditioned CG never increases it in exact arithmetic, so a
         larger one is divergence, whatever the residual says);
-      - reports the phase's errors against the exact values: ln P at the
+      - reports the cell's errors against the exact values: ln P at the
         peak, the posterior mean and the variance (as returned, and its
         least value before predict's clamp at 0), with the errors of the
-        interpolated cross covariance alone (solved exactly).
+        interpolated cross covariance alone (solved exactly);
+      - with ``variants`` (name -> preconditioner apply or None), solves
+        the same right-hand sides behind each, cut as the cell cuts and
+        again at 10 times the cap, and reports their iterations, largest
+        relative residual and K-norm error (nothing fails on them).
     """
     op, kind = fitted.op, fitted.kind
     opts = fitted.spec.solver.opts
     x, y = fitted.x, fitted.y
     n = op.n
     theta = fitted.result.theta_hat.to(x.device)
-    p = ops.natural_params(kind, theta)
     xs = torch.as_tensor(xstar_np, device=x.device, dtype=x.dtype)
-    K = kt.tile_matrix(kind, p, x, x)
+    K = ops.matrix(kind, theta, x, x)
     K.diagonal().add_(op.noise2)
     chol, info = torch.linalg.cholesky_ex(K)
     if int(info) != 0:
@@ -875,27 +1320,32 @@ def check_at_peak(fitted, post, xstar_np, seed):
     rhs = torch.cat([y[:, None], rnd.rademacher(
         rnd.key(seed), (n, 8), device=x.device, dtype=x.dtype)], dim=1)
     exact = torch.cholesky_solve(rhs, chol)
-    pc = it.make_preconditioner(op, theta, opts.precond, opts.precond_rank)
-    cut = it.cg_solve(opers.bound_gram_matvec(op, theta, x.dtype), rhs,
-                      tol=opts.cg_tol, max_iter=opts.cg_max_iter,
-                      precond=pc.apply if pc is not None else None)
-    err = cut.x - exact
-    knorm_err = torch.sqrt(torch.sum(err * (K @ err), dim=0)
+    mv = opers.bound_gram_matvec(op, theta, x.dtype)
+
+    def solve(precond, max_iter):
+        cut = it.cg_solve(mv, rhs, tol=opts.cg_tol, max_iter=max_iter,
+                          precond=precond)
+        err = cut.x - exact
+        knorm = torch.sqrt(torch.sum(err * (K @ err), dim=0)
                            / torch.sum(exact * rhs, dim=0))
+        return cut, knorm
+
+    pc = it.make_preconditioner(op, theta, opts.precond, opts.precond_rank)
+    cut, knorm_err = solve(pc.apply if pc is not None else None,
+                           opts.cg_max_iter)
     s2 = float(y @ exact[:, 0]) / n
     ln_p = (-0.5 * n * (math.log(2.0 * math.pi) + 1.0 + math.log(s2))
             - float(torch.sum(torch.log(torch.diagonal(chol)))))
     s2_cut = float(y @ cut.x[:, 0]) / n
+    noise_var = (fitted.spec.noise.sigma_n ** 2
+                 if fitted.spec.noise.include_noise else 0.0)
 
     def posterior(ks):
         quad = torch.sum(torch.linalg.solve_triangular(
             chol, ks, upper=False) ** 2, dim=0)
-        var = s2 * (1.0 - quad)
-        if fitted.spec.noise.include_noise:
-            var = var + s2 * TIDAL_SIGMA_N ** 2
-        return ks.T @ exact[:, 0], var
+        return ks.T @ exact[:, 0], s2 * (1.0 - quad + noise_var)
 
-    mean, var = posterior(kt.tile_matrix(kind, p, x, xs))
+    mean, var = posterior(ops.matrix(kind, theta, x, xs))
     mean_interp, var_interp = posterior(
         op.cross_columns(theta, op.cross_interp(xs)))
     out = dict(
@@ -908,13 +1358,37 @@ def check_at_peak(fitted, post, xstar_np, seed):
         var_exact_min=float(var.min()), var_exact_max=float(var.max()),
         var_err_max=float((post.var - var).abs().max()),
         var_interp_err_max=float((var_interp - var).abs().max()))
-    emit({"at_peak": out})
+    for name, apply in (variants or {}).items():
+        row = {}
+        for cap in (opts.cg_max_iter, 10 * opts.cg_max_iter):
+            t0 = time.perf_counter()
+            got, knorm = solve(apply, cap)
+            row[f"cap_{cap}"] = dict(
+                iters=got.iters, resnorm_max=float(got.resnorm.max()),
+                knorm_rel_err_max=float(knorm.max()),
+                s=time.perf_counter() - t0)
+        out.setdefault("precond_variants", {})[name] = row
+    emit({label: out})
     check_finite((("exact ln P at the peak", ln_p),
                   ("K-norm error of the cut solve", knorm_err.max())))
     if not float(knorm_err.max()) <= 1.0:
-        raise AssertionError(f"the SKI phase's CG diverges at the peak: its "
-                             f"K-norm error exceeds the zero start's: {out}")
+        raise AssertionError(f"the cell's CG diverges at the peak ({label}): "
+                             f"its K-norm error exceeds the zero start's: "
+                             f"{out}")
     return out
+
+
+def reference_product_ski_precond(op, theta, floor=1e-12):
+    """The JAX package's product-SKI CG preconditioner, rebuilt here to
+    compare with the port's: W (x_a Strang_a)^{-1} W^T from the
+    noise-free inner Kronecker operator (no noise2 in the spectrum)."""
+    pc = opers.masked_circulant_slq_precond(
+        opers._strang_outer(op._kron.first_columns(theta), 0.0, floor), None)
+
+    def apply(r):
+        return op._W(pc.apply_inv(op._Wt(r)))
+
+    return apply
 
 
 def card_vs_cpu(spec, x, y, theta, sigma_n, dev):
@@ -961,6 +1435,23 @@ def bank_card_vs_cpu(x, y, opts, dev):
     return lp_rel, g_rel, "bank_" + bank.structure
 
 
+def nd_small_input_checks(dev, opts):
+    """The N-D operators on small inputs: a gappy field (product SKI,
+    B10/B11), its full grid (Kronecker) and scattered (n, 2) points (the
+    product tiles, B8/B9), card against CPU."""
+    spec = gp.GPSpec(ND_KIND, noise=gp.NoiseModel(sigma_n=FIELD_SIGMA_N),
+                     solver=gp.SolverPolicy(
+                         backend="iterative",
+                         opts=opts._replace(precond="circulant")))
+    checks = []
+    for want, (x, y, _) in (("product_ski", make_field(2, (24, 16))),
+                            ("kron", make_field(2, (24, 16), drop=0.0)),
+                            ("pallas", make_scattered_field(2, 300))):
+        checks.append((len(x), want, card_vs_cpu(
+            spec, x, y, ND_THETA[ND_KIND], FIELD_SIGMA_N, dev)))
+    return checks
+
+
 def small_input_check(dev):
     """ln P_max and its gradient on the card against the CPU path: an
     irregular input (tiles), a gappy record (SKI, B5/B6, circulant
@@ -989,6 +1480,7 @@ def small_input_check(dev):
         tspec, xf, yf, SKI_THETA["k2"], TIDAL_SIGMA_N, dev)))
     checks += [(len(xg), "bank_near", bank_card_vs_cpu(xg, yg, opts, dev)),
                (n_full, "bank_exact", bank_card_vs_cpu(xf, yf, opts, dev))]
+    checks += nd_small_input_checks(dev, opts)
     for n, want_op, (lp_rel, g_rel, got_op) in checks:
         emit({"small_input_check": dict(n=n, operator=got_op,
                                         log_p_max_rel_err=lp_rel,
@@ -1009,9 +1501,12 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=None,
                     help="also write every result to this JSON file")
     ap.add_argument("--six-month", default=None,
-                    metavar="SIGMA_N,STARTS,ITERS,SCAN",
-                    help="run only the 6-month sequential-vs-bank check, "
-                         "at this budget")
+                    metavar="SIGMA_N,STARTS,ITERS,SCAN[,MONTHS]",
+                    help="run only the sequential-vs-bank check, at this "
+                         "budget")
+    ap.add_argument("--nd", action="store_true",
+                    help="run only the kernel cases of B8-B11 and the N-D "
+                         "phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1026,9 +1521,27 @@ def main(argv=None) -> int:
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
     if args.six_month:
-        sig, starts, iters, scan = args.six_month.split(",")
+        sig, starts, iters, scan, *months = args.six_month.split(",")
         sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),
-                           int(scan))
+                           int(scan), *(int(m) for m in months))
+        return 0
+    if args.nd:
+        cases = {name: [] for name in SOURCES}
+        nd_kernel_cases(cases, dev, np.random.default_rng(args.seed + 1),
+                        args.seed)
+        check_cases(cases, ND_KERNELS[:4])
+        nd = nd_phase(args.seed)
+        for n, want_op, (lp_rel, g_rel, got_op) in nd_small_input_checks(
+                dev, eng.SolverOpts(n_probes=4, lanczos_k=24, cg_tol=1e-10,
+                                    cg_max_iter=2000)):
+            emit({"small_input_check": dict(n=n, operator=got_op,
+                                            log_p_max_rel_err=lp_rel,
+                                            grad_rel_err=g_rel)})
+        if args.json:
+            path = pathlib.Path(args.json)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(dict(device=smi, cases=cases, nd=nd),
+                                       indent=1))
         return 0
 
     x_np, y_np, xstar_np = make_data(args.seed, dev)
@@ -1038,11 +1551,13 @@ def main(argv=None) -> int:
     cases, crossover = kernel_phase(x, xstar, dev, rng, args.seed)
     summary = workflow_phase(x_np, y_np, xstar_np, args.seed, args.budget)
     ski = ski_phase(args.seed)
+    nd = nd_phase(args.seed)
     seq_vs_bank = sequential_vs_bank(args.seed)
     small_input_check(dev)
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
-                **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS}}
+                **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS},
+                **{k: nd["launches"][k] for k in ND_KERNELS[:4]}}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         h = headline(name, cases[name])
@@ -1064,7 +1579,7 @@ def main(argv=None) -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
-            workflow=summary, ski_workflow=ski,
+            workflow=summary, ski_workflow=ski, nd=nd,
             sequential_vs_bank=seq_vs_bank, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"ok": True, "device": {"platform": "gpu",

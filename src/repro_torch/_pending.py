@@ -10,7 +10,6 @@ from __future__ import annotations
 DENSE = "slice S1 (the dense Cholesky path)"
 PIVCHOL = ("the rest of slice S2 (pivoted-Cholesky preconditioner and "
            "low-rank operator)")
-ND = "the N-D grid slice (composite '*' kinds, Kronecker and product SKI)"
 STOCHASTIC = "the stochastic-backend slice"
 BANK = "the batched-bank slice"
 

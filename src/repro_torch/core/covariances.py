@@ -4,8 +4,10 @@ Counterpart of ``repro/core/covariances.py`` for the six kinds that have a
 matrix-free tile: the paper's k1 and k2 (Wendland window x periodic terms)
 and se / matern12 / matern32 / matern52: the record of each kind (its
 parameters and which are timescales, smoothness or ordered) and the flat
-coordinate maps.  The covariances themselves are the tiles of
-``repro_torch.kernels.ref``; the dense forms come with the dense slice.
+coordinate maps, and the separable products of them over (n, d) inputs
+("se*matern32": one factor per axis).  The covariances themselves are the
+tiles of ``repro_torch.kernels.ref``; the dense forms come with the dense
+slice.
 Flat coordinates: timescales T = exp(phi) (Jeffreys prior) and smoothness
 l = exp(mu + sqrt(2) sigma_l erfinv(2 xi)) (log-normal prior).
 """
@@ -43,6 +45,7 @@ class Covariance:
     (data-dependent box) and flat smoothness coordinates (box (-1/2, 1/2)).
     ordering_groups: timescale indices required to be non-decreasing (k2's
     T2 >= T1).
+    axes: the per-axis factors of a separable product (empty otherwise).
     """
 
     name: str
@@ -50,6 +53,7 @@ class Covariance:
     timescale_idx: Tuple[int, ...] = ()
     smoothness_idx: Tuple[int, ...] = ()
     ordering_groups: Tuple[Tuple[int, ...], ...] = ()
+    axes: Tuple["Covariance", ...] = ()
 
     @property
     def n_params(self) -> int:
@@ -72,12 +76,47 @@ REGISTRY = {c.name: c for c in (K1, K2, SE, MATERN12, MATERN32, MATERN52)}
 _DENSE_ONLY = ("rq", "periodic")
 
 
+def separable(name: str, *factors: Covariance) -> Covariance:
+    """Separable product over (n, d) inputs, one 1-D factor per axis:
+    k(x, x') = prod_a k_a(x[a], x'[a]), theta the concatenation of the
+    per-axis blocks (indices offset accordingly)."""
+    if len(factors) < 2:
+        raise ValueError("separable() needs at least two axis factors")
+    offs = [0]
+    for f in factors:
+        offs.append(offs[-1] + f.n_params)
+    return Covariance(
+        name=name,
+        param_names=tuple(f"ax{a}_{p}" for a, f in enumerate(factors)
+                          for p in f.param_names),
+        timescale_idx=tuple(offs[a] + i for a, f in enumerate(factors)
+                            for i in f.timescale_idx),
+        smoothness_idx=tuple(offs[a] + i for a, f in enumerate(factors)
+                             for i in f.smoothness_idx),
+        ordering_groups=tuple(tuple(offs[a] + i for i in grp)
+                              for a, f in enumerate(factors)
+                              for grp in f.ordering_groups),
+        axes=tuple(factors))
+
+
 def resolve(name: str) -> Covariance:
-    """Look up one of the six tiled covariances by name."""
+    """Look up a tiled covariance by name; "a*b" names give the separable
+    product of registered factors (KeyError naming the factors
+    otherwise)."""
     if name in REGISTRY:
         return REGISTRY[name]
     if "*" in name:
-        raise _pending.pending(f"composite covariance {name!r}", _pending.ND)
+        parts = name.split("*")
+        missing = [p for p in parts if p not in REGISTRY]
+        dense = [p for p in missing if p in _DENSE_ONLY]
+        if dense:
+            raise _pending.pending(f"covariance factor(s) {dense} (no "
+                                   f"matrix-free tile)", _pending.DENSE)
+        if missing:
+            raise KeyError(f"unknown covariance factor(s) {missing} in "
+                           f"{name!r}; registered factors: "
+                           f"{sorted(REGISTRY)}")
+        return separable(name, *(REGISTRY[p] for p in parts))
     if name in _DENSE_ONLY:
         raise _pending.pending(f"covariance {name!r} (no matrix-free tile)",
                                _pending.DENSE)

@@ -5,8 +5,9 @@ every quantity of the paper's workflow — solves, ln det K, sigma_f_hat^2
 (eq. 2.15) and the stacked gradient terms of eq. (2.17) — from batched CG,
 SLQ (plain or preconditioned) and Hutchinson probes over the bound linear
 operator.  On the tile operator every matrix access is a B1 or B2 launch;
-on a fused SKI operator (a gappy record) a B5 or B6 launch; K is never
-stored.
+on a fused SKI operator (a gappy record) a B5 or B6 launch; on a fused
+product-SKI operator (a gappy 2-D field) a B10 or B11 launch; on
+scattered (n, d) data a B8 or B9 launch; K is never stored.
 Backends and options that the port does not run yet raise and name the
 slice that brings them.
 """
@@ -175,10 +176,19 @@ def select_fused(op) -> bool:
 
 
 def resolve_kind(cov: Covariance) -> str:
-    """Covariance-tile registry key for the iterative backend."""
+    """Covariance-tile registry key for the iterative backend ("a*b"
+    composite names when every factor has a tile)."""
     name = cov.name if isinstance(cov, Covariance) else str(cov)
     if "*" in name:
-        raise _pending.pending(f"composite covariance {name!r}", _pending.ND)
+        try:
+            kops.split_kind(name)
+        except ValueError:
+            raise ValueError(
+                f"composite covariance {name!r} has a factor with no "
+                f"registered tile, so the iterative backend cannot "
+                f"evaluate it matrix-free; registered kinds: "
+                f"{sorted(kops._FLAT_TO_NATURAL)}") from None
+        return name
     if name not in kops._FLAT_TO_NATURAL:
         raise ValueError(
             f"covariance {name!r} has no registered tile, so the iterative "

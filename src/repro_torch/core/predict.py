@@ -4,11 +4,13 @@ Counterpart of the iterative path of ``repro/core/predict.py``: mean =
 k*^T K^-1 y, var = sigma_f_hat^2 (1 - k*^T K^-1 k*).  With the exact cross
 covariance the mean is one B1 launch with n1 = n*, b = 1, and the variance
 builds the (n, n*) cross block with B4 and solves it with one batched CG.
-With ``cross="interp"`` on an SKI operator the test points are
-interpolated onto the same inducing grid: the mean is W* K_grid W^T alpha,
-and the variance builds its right-hand sides chunk by chunk through the W
-sandwich (no (n, n*) block), each chunk one batched CG (a B5 launch per
-iteration when fused).
+With ``cross="interp"`` on an SKI or product-SKI operator the test points
+are interpolated onto the same inducing grid: the mean is
+W* K_grid W^T alpha, and the variance builds its right-hand sides chunk by
+chunk through the W sandwich (no (n, n*) block), each chunk one batched
+CG (a B5 or B10 launch per iteration when fused).  Composite kinds take
+(n*, d) test points; their exact cross covariance is B8 for the mean and
+B4 once per factor for the variance's block.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from .. import _pending
 from .. import _sync
 from . import engine as eng
 from ..kernels import ops as kops
-from ..kernels.operators import SKIOperator
+from ..kernels.operators import ProductSKIOperator, SKIOperator
 from .covariances import Covariance
 
 
@@ -72,7 +74,8 @@ def _predict_iterative(cov: Covariance, theta, x, y, xstar, sigma_n: float,
                              key=key, jitter=jitter, opts=opts, op=op)
     s2 = solver.sigma2_hat()                     # the K^-1 y solve
     star = None
-    if cross == "interp" and isinstance(solver.op, SKIOperator):
+    if cross == "interp" and isinstance(solver.op, (SKIOperator,
+                                                    ProductSKIOperator)):
         star = solver.op.cross_interp(xstar)     # None: x* off the grid
     if star is not None:
         mean = solver.op.cross_matvec(theta, star, solver.alpha)

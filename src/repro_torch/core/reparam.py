@@ -1,8 +1,10 @@
 """Flat-prior box and prior-volume bookkeeping (paper Sec. 3).
 
-Counterpart of ``repro/core/reparam.py`` for 1-D inputs: timescales are
-flat in phi = ln T on (ln dt_min, ln dt_max), smoothness coordinates flat
-on (-1/2, 1/2); k2's ordering T2 >= T1 halves the box volume.
+Counterpart of ``repro/core/reparam.py``: timescales are flat in
+phi = ln T on (ln dt_min, ln dt_max), smoothness coordinates flat on
+(-1/2, 1/2); k2's ordering T2 >= T1 halves the box volume.  A separable
+product's box is the concatenation of its factors' boxes, each from its
+own column of the (n, d) inputs.
 """
 
 from __future__ import annotations
@@ -35,10 +37,21 @@ def data_timescale_range(x):
 
 
 def flat_box(cov: Covariance, x) -> FlatBox:
-    """Flat-prior box for every hyperparameter of ``cov`` given 1-D x."""
-    if x.ndim != 1:
-        raise ValueError(f"flat_box takes 1-D inputs here, got shape "
-                         f"{tuple(x.shape)}")
+    """Flat-prior box for every hyperparameter of ``cov`` given x: 1-D x
+    for a plain covariance, (n, d) x for a separable product (axis a's
+    timescales from x[:, a] alone)."""
+    if cov.axes:
+        if x.ndim != 2 or x.shape[1] != len(cov.axes):
+            raise ValueError(
+                f"separable covariance '{cov.name}' needs (n, "
+                f"{len(cov.axes)}) inputs for its per-axis prior box, got "
+                f"shape {tuple(x.shape)}")
+        parts = [flat_box(f, x[:, a]) for a, f in enumerate(cov.axes)]
+        return FlatBox(torch.cat([p.lo for p in parts]),
+                       torch.cat([p.hi for p in parts]))
+    # a plain covariance reads the separations of all of x, flattened, as
+    # the JAX package does (a plain kind on (n, d) x is refused later, by
+    # the operator dispatch, with the reference's message)
     dt_min, dt_max = data_timescale_range(x)
     lo = torch.zeros(cov.n_params, dtype=x.dtype, device=x.device)
     hi = torch.zeros(cov.n_params, dtype=x.dtype, device=x.device)

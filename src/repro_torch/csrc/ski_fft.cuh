@@ -26,6 +26,13 @@
 // columns.  B7 takes v as (n, B, c) and multiplies the packed columns of
 // member q by that member's own spectrum.
 //
+// The Stockham pass (fft_stage) is the one the 2-D sandwich runs
+// (ski_fft_2d.cuh): it takes the axis of an (L1, L2) plane as an
+// argument, and a 1-D transform of length L is the (1, L) plane along
+// axis 1.  Every kernel here puts its whole index space on gridDim.x, so
+// no count of packed columns (m_dirs * B * ceil(c / 2)) meets the 65,535
+// limit of gridDim.y.
+//
 // What bounds it on an H100: at the main path's shape (n ~ 7080,
 // m ~ 7875, L = 16384, b = 9, float64) the function must move ~1.5 MB
 // (~0.4 us at 3.35 TB/s) and do ~1.2e7 FFT operations (~0.3 us at
@@ -64,10 +71,11 @@ __global__ void wt_pack(int n, int m, int L, int d0, int s,
                         const int* __restrict__ occ,
                         const T* __restrict__ wcell,
                         const T* __restrict__ v, int B, int c, int P,
-                        cplx<T>* __restrict__ buf) {
-  const int cl = blockIdx.x * blockDim.x + threadIdx.x;
-  const int col = blockIdx.y;
-  if (cl >= L) return;
+                        int cols, cplx<T>* __restrict__ buf) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (long long)L * cols) return;
+  const int col = (int)(g / L);
+  const int cl = (int)(g % L);
   const int q = col / P;
   const int j0 = 2 * (col % P);
   const bool two = j0 + 1 < c;
@@ -85,38 +93,13 @@ __global__ void wt_pack(int n, int m, int L, int d0, int s,
       if (two) im += w * vr[1];
     }
   }
-  buf[(size_t)col * L + cl] = cplx<T>{re, im};
+  buf[g] = cplx<T>{re, im};
 }
 
-// One radix-R Stockham pass (natural order in, natural order out after
-// the last pass).  Column `col` of dst reads column col % cols_src of src;
-// a non-null lam scales the loads by lam[(col / lam_div) * L + row] (the
-// spectrum multiply, folded into the first inverse pass: lam_div = P, so
-// each direction or member reads its own spectrum).
+// The twiddles and the radix-R butterfly of one Stockham pass on the R
+// values v[r] = in[j + r L / R] of sub-transform position k = j mod Ns.
 template <typename T, int R, bool INV>
-__global__ void fft_stage(const cplx<T>* __restrict__ src,
-                          cplx<T>* __restrict__ dst, int L, int Ns,
-                          int cols_src, int lam_div,
-                          const T* __restrict__ lam) {
-  const int stride = L / R;
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= stride) return;
-  const int col = blockIdx.y;
-  const cplx<T>* in = src + (size_t)(col % cols_src) * L;
-  cplx<T>* out = dst + (size_t)col * L;
-  cplx<T> v[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) v[r] = in[j + r * stride];
-  if (lam != nullptr) {
-    const T* lm = lam + (size_t)(col / lam_div) * L;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const T l = lm[j + r * stride];
-      v[r].re *= l;
-      v[r].im *= l;
-    }
-  }
-  const int k = j & (Ns - 1);
+__device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
 #pragma unroll
   for (int r = 1; r < R; ++r) {
     // e^{-+2 pi i k r / (Ns R)}: an exact power-of-two fraction of pi
@@ -144,9 +127,65 @@ __global__ void fft_stage(const cplx<T>* __restrict__ src,
     v[2] = cplx<T>{a0.re - a2.re, a0.im - a2.im};
     v[3] = cplx<T>{a1.re - a3.re, a1.im - a3.im};
   }
+}
+
+// One radix-R Stockham pass (natural order in, natural order out after
+// the last pass) along `axis` of every (L1, L2) plane: each plane is
+// (outer, len, inner) with (1, L1, L2) for axis 0 and (L1, L2, 1) for
+// axis 1, so consecutive threads take consecutive `inner` addresses; a
+// 1-D transform of length L is the plane (1, L) along axis 1.  Every
+// index lives on gridDim.x (64-bit thread index), so no count of planes
+// meets the 65,535 limit of gridDim.y.  Plane `col` of dst reads plane
+// col % cols_src of src; a non-null lam2 scales the loads by the spectrum
+// of dir = col / P: lam2[dir, r2] (1-D: each direction's or member's own
+// spectrum), times lam1[dir, r1] where lam1 is non-null (2-D: the outer
+// product of the axis spectra).  The multiply is folded into the first
+// inverse pass.
+template <typename T, int R, bool INV>
+__global__ void fft_stage(const cplx<T>* __restrict__ src,
+                          cplx<T>* __restrict__ dst, int L1, int L2,
+                          int axis, int Ns, int cols_out, int cols_src,
+                          int P, const T* __restrict__ lam1,
+                          const T* __restrict__ lam2) {
+  const int len = axis == 0 ? L1 : L2;
+  const int inner = axis == 0 ? L2 : 1;
+  const int stride = len / R;
+  const long long plane = (long long)L1 * L2;
+  const long long per = plane / R;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= per * cols_out) return;
+  const int col = (int)(g / per);
+  const long long w = g % per;
+  const int i = (int)(w % inner);
+  const long long t = w / inner;
+  const int j = (int)(t % stride);
+  const int o = (int)(t / stride);
+  const cplx<T>* in = src + (size_t)(col % cols_src) * plane;
+  cplx<T>* out = dst + (size_t)col * plane;
+  const size_t row0 = (size_t)o * len;
+  cplx<T> v[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    v[r] = in[(row0 + j + r * stride) * inner + i];
+  if (lam2 != nullptr) {
+    const int dir = col / P;
+    const T* l1 = lam1 != nullptr ? lam1 + (size_t)dir * L1 : nullptr;
+    const T* l2 = lam2 + (size_t)dir * L2;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int pos = j + r * stride;
+      T l = axis == 0 ? l2[i] : l2[pos];
+      if (l1 != nullptr) l *= axis == 0 ? l1[pos] : l1[o];
+      v[r].re *= l;
+      v[r].im *= l;
+    }
+  }
+  const int k = j & (Ns - 1);
+  butterfly<T, R, INV>(v, k, Ns);
   const int base = (j - k) * R + k;
 #pragma unroll
-  for (int r = 0; r < R; ++r) out[base + r * Ns] = v[r];
+  for (int r = 0; r < R; ++r)
+    out[(row0 + base + r * Ns) * inner + i] = v[r];
 }
 
 // W ku (+ noise2 v) from packed column col = (dir * B + q) * P + p into
@@ -156,12 +195,13 @@ template <typename T>
 __global__ void w_apply(int n, int m, int L, int d0, int s,
                         const int* __restrict__ cell,
                         const T* __restrict__ wcell,
-                        const cplx<T>* __restrict__ buf, int P, T noise2,
-                        const T* __restrict__ v, int B, int c,
+                        const cplx<T>* __restrict__ buf, int P, int cols,
+                        T noise2, const T* __restrict__ v, int B, int c,
                         T* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int col = blockIdx.y;
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= (long long)n * cols) return;
+  const int col = (int)(g / n);
+  const int i = (int)(g % n);
   const int dq = col / P;
   const int dir = dq / B;
   const int q = dq % B;
@@ -189,18 +229,58 @@ __global__ void w_apply(int n, int m, int L, int d0, int s,
   }
 }
 
+inline unsigned int blocks_for(long long threads) {
+  return (unsigned int)((threads + kThreads - 1) / kThreads);
+}
+
+// Whether `threads` fit one launch of kThreads-wide blocks on gridDim.x.
+inline bool fits_grid(long long threads) {
+  return threads <= (long long)kThreads * 0x7fffffffLL;
+}
+
 template <typename T, bool INV>
-cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L,
-                         int Ns, int cols_out, int cols_src, int lam_div,
-                         const T* lam, cudaStream_t st) {
-  dim3 grid((L / R + kThreads - 1) / kThreads, cols_out);
+cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L1,
+                         int L2, int axis, int Ns, int cols_out,
+                         int cols_src, int P, const T* lam1, const T* lam2,
+                         cudaStream_t st) {
+  const unsigned int grid = blocks_for((long long)L1 * L2 / R * cols_out);
   if (R == 2)
-    fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
-                                                    cols_src, lam_div, lam);
+    fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(
+        src, dst, L1, L2, axis, Ns, cols_out, cols_src, P, lam1, lam2);
   else
-    fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(src, dst, L, Ns,
-                                                    cols_src, lam_div, lam);
+    fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(
+        src, dst, L1, L2, axis, Ns, cols_out, cols_src, P, lam1, lam2);
   return cudaGetLastError();
+}
+
+inline int log2_of(int L) {
+  int k = 0;
+  while ((1 << k) < L) ++k;
+  return k;
+}
+
+// The passes of one axis of the (L1, L2) planes: Stockham radix 4 (one
+// radix-2 pass first when log2 L is odd).  first_lam1/2: the spectra of
+// the first pass (lam2 null: no multiply).
+template <typename T, bool INV>
+cudaError_t axis_passes(cplx<T>** bufs, int* cur, int L1, int L2, int axis,
+                        int cols_out, int cols_src, int P,
+                        const T* first_lam1, const T* first_lam2,
+                        cudaStream_t st) {
+  const int L = axis == 0 ? L1 : L2;
+  const int lg = log2_of(L);
+  for (int Ns = 1; Ns < L;) {
+    const int R = (Ns == 1 && (lg & 1)) ? 2 : 4;
+    const bool first = Ns == 1;
+    cudaError_t err = launch_stage<T, INV>(
+        R, bufs[*cur], bufs[*cur ^ 1], L1, L2, axis, Ns, cols_out,
+        first ? cols_src : cols_out, P, first ? first_lam1 : nullptr,
+        first ? first_lam2 : nullptr, st);
+    if (err != cudaSuccess) return err;
+    *cur ^= 1;
+    Ns *= R;
+  }
+  return cudaSuccess;
 }
 
 // The whole sandwich on v (n, B, c): out (m_dirs, n, B, c), direction
@@ -219,42 +299,30 @@ cudaError_t sandwich(int n, int m, int L, int d0, int s, const int* occ,
   const int P = (c + 1) / 2;
   if (n <= 0 || c <= 0 || B <= 0 || m_dirs <= 0) return cudaSuccess;
   const long long cols_ll = (long long)m_dirs * B * P;
-  if (L < 2 || (L & (L - 1)) != 0 || cols_ll > 65535)
+  if (L < 2 || (L & (L - 1)) != 0 || cols_ll > 0x7fffffffLL ||
+      !fits_grid((long long)L * cols_ll) || !fits_grid((long long)n * cols_ll))
     return cudaErrorInvalidValue;
   const int F = B * P;  // forward columns
   const int cols = (int)cols_ll;
   cplx<T>* bufs[2] = {reinterpret_cast<cplx<T>*>(scratch0),
                       reinterpret_cast<cplx<T>*>(scratch1)};
-  wt_pack<T><<<dim3((L + kThreads - 1) / kThreads, F), kThreads, 0, st>>>(
-      n, m, L, d0, s, occ, wcell, v, B, c, P, bufs[0]);
+  wt_pack<T><<<blocks_for((long long)L * F), kThreads, 0, st>>>(
+      n, m, L, d0, s, occ, wcell, v, B, c, P, F, bufs[0]);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  int log2L = 0;
-  while ((1 << log2L) < L) ++log2L;
   int cur = 0;
   // forward transform of the F packed columns
-  for (int Ns = 1; Ns < L;) {
-    const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
-    err = launch_stage<T, false>(R, bufs[cur], bufs[cur ^ 1], L, Ns, F, F,
-                                 P, nullptr, st);
-    if (err != cudaSuccess) return err;
-    cur ^= 1;
-    Ns *= R;
-  }
+  err = axis_passes<T, false>(bufs, &cur, 1, L, 1, F, F, P, nullptr,
+                              nullptr, st);
+  if (err != cudaSuccess) return err;
   // inverse: the first pass multiplies by each column's spectrum and
   // spreads the F columns to m_dirs * F
-  for (int Ns = 1; Ns < L;) {
-    const int R = (Ns == 1 && (log2L & 1)) ? 2 : 4;
-    const bool first = Ns == 1;
-    err = launch_stage<T, true>(R, bufs[cur], bufs[cur ^ 1], L, Ns, cols,
-                                first ? F : cols, P,
-                                first ? lams : nullptr, st);
-    if (err != cudaSuccess) return err;
-    cur ^= 1;
-    Ns *= R;
-  }
-  w_apply<T><<<dim3((n + kThreads - 1) / kThreads, cols), kThreads, 0, st>>>(
-      n, m, L, d0, s, cell, wcell, bufs[cur], P, noise2, noise_v, B, c, out);
+  err = axis_passes<T, true>(bufs, &cur, 1, L, 1, cols, F, P, nullptr, lams,
+                             st);
+  if (err != cudaSuccess) return err;
+  w_apply<T><<<blocks_for((long long)n * cols), kThreads, 0, st>>>(
+      n, m, L, d0, s, cell, wcell, bufs[cur], P, cols, noise2, noise_v, B,
+      c, out);
   return cudaGetLastError();
 }
 

@@ -50,6 +50,58 @@ inline int sweep_max_cols(int m, size_t elem) {
   return b;
 }
 
+// Contract the m tiles in ks ((m, ROWS, COLS + 1) rows) with rows
+// c0 .. c0 + COLS of V into acc (m, ROWS, b), one chunk of
+// vw = min(b, VCOLS) columns of V at a time, staged in vs.  Called by the
+// whole block after the tiles are written and synchronised.
+template <typename T>
+__device__ __forceinline__ void contract_tile(const T* ks, T* vs, T* acc,
+                                              const T* __restrict__ v,
+                                              int ldv, int b, int m, int c0,
+                                              int n2) {
+  const int tid = threadIdx.x;
+  const int ks_stride = SWEEP_COLS + 1;
+  const int vw = b < SWEEP_VCOLS ? b : SWEEP_VCOLS;
+  const int vs_stride = vw + 1;
+  for (int j0 = 0; j0 < b; j0 += vw) {
+    const int w = (b - j0) < vw ? (b - j0) : vw;
+    for (int e = tid; e < SWEEP_COLS * w; e += SWEEP_THREADS) {
+      const int c = e / w;
+      const int j = e % w;
+      vs[c * vs_stride + j] =
+          (c0 + c < n2) ? v[(size_t)(c0 + c) * ldv + j0 + j] : T(0);
+    }
+    __syncthreads();
+    for (int e = tid; e < m * SWEEP_ROWS * w; e += SWEEP_THREADS) {
+      const int j = e % w;
+      const int ir = e / w;  // i * SWEEP_ROWS + r
+      const T* krow = ks + ir * ks_stride;
+      T s = T(0);
+#pragma unroll 8
+      for (int c = 0; c < SWEEP_COLS; ++c) s += krow[c] * vs[c * vs_stride + j];
+      acc[ir * b + j0 + j] += s;
+    }
+    __syncthreads();
+  }
+}
+
+// Write the stripe's accumulators acc (m, ROWS, b) to out[i, row0 + r, j]
+// (out is (m, n1, ldo)), masking the rows past n1.
+template <typename T>
+__device__ __forceinline__ void write_stripe(const T* acc,
+                                             T* __restrict__ out, int ldo,
+                                             int b, int m, int row0,
+                                             int n1) {
+  const int n_acc = m * SWEEP_ROWS * b;
+  for (int e = threadIdx.x; e < n_acc; e += SWEEP_THREADS) {
+    const int j = e % b;
+    const int ir = e / b;
+    const int i = ir / SWEEP_ROWS;
+    const int r = ir % SWEEP_ROWS;
+    if (row0 + r < n1) out[((size_t)i * n1 + row0 + r) * ldo + j] = acc[e];
+  }
+}
+
 template <typename T, int KIND, bool TANGENT>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
@@ -115,36 +167,9 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
     }
     __syncthreads();
 
-    // contract with V, one chunk of vw columns at a time
-    for (int j0 = 0; j0 < b; j0 += vw) {
-      const int w = (b - j0) < vw ? (b - j0) : vw;
-      for (int e = tid; e < SWEEP_COLS * w; e += SWEEP_THREADS) {
-        const int c = e / w;
-        const int j = e % w;
-        vs[c * vs_stride + j] =
-            (c0 + c < n2) ? v[(size_t)(c0 + c) * ldv + j0 + j] : T(0);
-      }
-      __syncthreads();
-      for (int e = tid; e < m * SWEEP_ROWS * w; e += SWEEP_THREADS) {
-        const int j = e % w;
-        const int ir = e / w;  // i * SWEEP_ROWS + r
-        const T* krow = ks + ir * ks_stride;
-        T s = T(0);
-#pragma unroll 8
-        for (int c = 0; c < SWEEP_COLS; ++c) s += krow[c] * vs[c * vs_stride + j];
-        acc[ir * b + j0 + j] += s;
-      }
-      __syncthreads();
-    }
+    contract_tile<T>(ks, vs, acc, v, ldv, b, m, c0, n2);
   }
-
-  for (int e = tid; e < n_acc; e += SWEEP_THREADS) {
-    const int j = e % b;
-    const int ir = e / b;
-    const int i = ir / SWEEP_ROWS;
-    const int r = ir % SWEEP_ROWS;
-    if (row0 + r < n1) out[((size_t)i * n1 + row0 + r) * ldo + j] = acc[e];
-  }
+  write_stripe<T>(acc, out, ldo, b, m, row0, n1);
 }
 
 template <typename T, int KIND, bool TANGENT>

@@ -1,9 +1,11 @@
-"""Grid-structure probes and SKI inducing grids for 1-D coordinates
-(host side, numpy).
+"""Grid-structure probes and SKI inducing grids (host side, numpy).
 
 Copies of ``repro/data/grid.py`` with the same arithmetic:
 ``classify_grid`` says "exact" (a regular grid: Toeplitz), "near" (gaps or
 small jitter around one regular grid: SKI) or "irregular" (tiles);
+``classify_grid_nd`` says "kron" (a full product grid in row-major order:
+Kronecker), "product" (gappy, permuted or jittered product data: product
+SKI) or "irregular" for (n, d) coordinates;
 ``build_inducing_grid`` and ``interp_weights`` build the SKI inducing grid
 and the sparse cubic/linear interpolation weights W with K ~ W K_grid W^T.
 A point on a grid node gets a one-hot row, so a gappy record makes W an
@@ -93,6 +95,80 @@ def classify_grid(x, rtol: float = GRID_RTOL,
     if float(np.max(np.abs(off - k * h))) > near_rtol * h:
         return GridInfo("irregular", None)
     return GridInfo("near", h)
+
+
+# ---------------------------------------------------------------------------
+# Multi-axis (product-grid) classification
+# ---------------------------------------------------------------------------
+
+# A full product grid is worth expanding only while prod(m_a) <=
+# KRON_EXPAND * n (guards the collinear case: n points on a diagonal would
+# need an n^d grid).
+KRON_EXPAND = NEAR_GRID_EXPAND
+
+
+class ProductGridInfo(NamedTuple):
+    """Result of :func:`classify_grid_nd`: kind "kron" | "product" |
+    "irregular", the per-axis :class:`GridInfo` (empty when unavailable),
+    and for "kron" the per-axis sorted coordinates and cell counts."""
+
+    kind: str
+    axes: tuple = ()
+    grids: Optional[tuple] = None
+    shape: Optional[tuple] = None
+
+
+def classify_grid_nd(x, rtol: float = GRID_RTOL,
+                     near_rtol: float = NEAR_GRID_RTOL,
+                     max_expand: float = KRON_EXPAND) -> ProductGridInfo:
+    """Classify concrete (n, d >= 2) coordinates for product structure.
+
+    Each axis's distinct values go through :func:`classify_grid`; then
+    "kron" when every axis is exact and the points enumerate the full
+    product grid in canonical row-major order (last axis fastest),
+    "product" when every axis is exact or near and the expanded grid
+    holds at most ``max_expand`` cells per point, "irregular" otherwise.
+    Raises ValueError for an array that is not (n, d >= 2).
+    """
+    xc = _host(x)
+    if xc.ndim != 2 or xc.shape[1] < 2:
+        raise ValueError(
+            f"classify_grid_nd needs (n, d>=2) coordinates, got shape "
+            f"{xc.shape}; supported input layouts are (n,) / (n, 1) series "
+            "(1-D classify_grid) and (n, d) multi-axis points")
+    if not np.all(np.isfinite(xc)):
+        return ProductGridInfo("irregular")
+    xc = np.asarray(xc, np.float64)
+    n, d = xc.shape
+    uniques, invs, axes = [], [], []
+    for a in range(d):
+        u, inv = np.unique(xc[:, a], return_inverse=True)
+        uniques.append(u)
+        invs.append(inv)
+        if u.shape[0] < 2:
+            axes.append(GridInfo("irregular", None))
+        else:
+            axes.append(classify_grid(u, rtol=rtol, near_rtol=near_rtol,
+                                      max_expand=max_expand))
+    axes = tuple(axes)
+    if any(info.kind == "irregular" for info in axes):
+        return ProductGridInfo("irregular", axes)
+    cells = []
+    for a, info in enumerate(axes):
+        span = float(uniques[a][-1] - uniques[a][0])
+        cells.append(int(round(span / info.h)) + 1)
+    if float(np.prod([float(c) for c in cells])) > max_expand * n:
+        return ProductGridInfo("irregular", axes)
+    if all(info.kind == "exact" for info in axes):
+        shape = tuple(u.shape[0] for u in uniques)
+        flat = np.ravel_multi_index(tuple(invs), shape)
+        if np.unique(flat).shape[0] < n:       # duplicate points
+            return ProductGridInfo("irregular", axes)
+        if int(np.prod(shape)) == n and np.array_equal(
+                flat, np.arange(n, dtype=flat.dtype)):
+            return ProductGridInfo("kron", axes, tuple(uniques), shape)
+        return ProductGridInfo("product", axes)
+    return ProductGridInfo("product", axes)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,11 @@
 """The batched candidate bank: every model x restart as one program.
 
-Counterpart of ``repro/gp/batch.py`` for 1-D inputs.  On exact or near
-grids each candidate's training matrix is (a W-sandwich of) a symmetric
-Toeplitz matrix, fixed by its first column, so K models differ only in the
-B spectra that multiply one shared FFT:
+Counterpart of ``repro/gp/batch.py``.  On exact or near grids each
+candidate's training matrix is (a W-sandwich of) a symmetric Toeplitz
+matrix, fixed by its first column, so K models differ only in the B
+spectra that multiply one shared FFT; on (n, d) product grids ("kron" or
+"product") each is a Kronecker product of per-axis Toeplitz factors, and
+the members differ in their per-axis spectra:
 
   * :class:`BankOperator`: B matrices K_b + noise2 I on one geometry (the
     exact grid, or the shared inducing grid and sparse W of a gappy
@@ -24,8 +26,7 @@ B spectra that multiply one shared FFT:
 
 The JAX package's ``while_loop``s are Python loops here; each reads its
 condition back to the host once per iteration (:mod:`repro_torch._sync`).
-The pivoted-Cholesky bank preconditioner and multi-axis banks raise and
-name their slices.
+The pivoted-Cholesky bank preconditioner raises and names its slice.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import _pending
@@ -45,45 +47,77 @@ from ..core.engine import LOG2PI, SolverOpts
 from ..core.reparam import FlatBox, apply_ordering, flat_box, to_box
 from ..core.train import SCAN_KEY as PROBE_KEY
 from ..core.train import _nan_to_inf
-from ..data.grid import build_inducing_grid, classify_grid, interp_weights
+from ..data.grid import (build_inducing_grid, classify_grid, classify_grid_nd,
+                         interp_weights)
 from ..kernels import ops as kops
 from ..kernels import ski_fused
 from ..kernels.operators import (SLQPrecond, _column, _column_jacobian,
-                                 _embed, _selection_cells, _strang_spectrum,
-                                 interp_gather, interp_scatter,
+                                 _embed, _outer_taps, _selection_cells,
+                                 _strang_spectrum,
                                  masked_circulant_slq_precond_bank)
 from .spec import pad_boxes
+
+
+def _axis_conv_bank(U, axis: int, lam, m: int, L: int):
+    """Per-member circulant-embedded Toeplitz apply along one grid axis of
+    a stacked multi-axis bank block: U (m_1..m_d, <batch>, c) with
+    <batch> the member (and direction) dims, lam (<batch>, L_f) their
+    spectra, broadcast over the other grid axes, so one rfft/irfft pair
+    serves the whole bank."""
+    U = torch.movedim(U, axis, 0)
+    uhat = torch.fft.rfft(U, n=L, dim=0)
+    nb = lam.ndim - 1
+    lamb = torch.movedim(lam, -1, 0)
+    lamb = lamb.reshape((lamb.shape[0],) + (1,) * (U.ndim - nb - 2)
+                        + tuple(lam.shape[:-1]) + (1,))
+    out = torch.fft.irfft(uhat * lamb, n=L, dim=0)[:m]
+    return torch.movedim(out.to(U.dtype), 0, axis)
 
 
 class BankOperator:
     """B training matrices K_b + noise2 I sharing one FFT-ready geometry.
 
-    The inputs must classify "exact" (Toeplitz on the data grid) or
+    1-D inputs must classify "exact" (Toeplitz on the data grid) or
     "near" (SKI on the recovered grid: one inducing grid and one sparse W
-    for every member, since all members see the same x); irregular inputs
-    raise ``ValueError``.  ``like=`` reuses another bank's geometry (same
-    x) and, with ``fused="auto"``, its resolved fused decision.  A near
-    grid whose points sit in distinct cells takes B7 under "auto".
+    for every member, since all members see the same x); (n, d) inputs
+    with composite kinds "kron" (a full product grid) or "product" (per-
+    axis inducing grids and one outer-product W); irregular inputs raise
+    ``ValueError``.  ``like=`` reuses another bank's geometry (same x)
+    and, with ``fused="auto"``, its resolved fused decision.  A 1-D near
+    grid whose points sit in distinct cells takes B7 under "auto"; a
+    multi-axis bank takes the unfused Kronecker cycle, as in the JAX
+    package (the members' per-axis spectra differ).
     """
 
     def __init__(self, kinds: Sequence[str], x, sigma_n: float = 0.0,
                  jitter: float = 0.0, like: "BankOperator" = None,
                  fused="auto"):
-        for k in kinds:
-            kops.check_kind(k)
-        if x.ndim != 1:
-            raise _pending.pending("a multi-axis bank", _pending.ND)
+        splits = [kops.split_kind(k) for k in kinds]
+        ds = {len(f) for f in splits}
+        if len(ds) != 1:
+            raise ValueError(
+                "every bank member must cover the same coordinate axes; "
+                f"got factor counts {sorted(len(f) for f in splits)} for "
+                f"kinds {tuple(kinds)}")
+        self.d = ds.pop()
         self.kinds = tuple(kinds)
+        self.kinds_split = tuple(splits)
         self.B = len(self.kinds)
         self.x = x
         self.n = int(x.shape[0])
         if like is not None:
             self.idx, self.w = like.idx, like.w
+            self._interp = like._interp
             self.structure = like.structure
             self.fused_geom = like.fused_geom
             self._sel_cells = like._sel_cells
+            self.shape = like.shape
+            self.axis_grids = like.axis_grids
             grid = like.grid
+        elif self.d > 1:
+            grid = self._init_nd(x)
         else:
+            self.shape = self.axis_grids = None
             info = classify_grid(x)
             if info.kind == "exact":
                 grid = x
@@ -110,19 +144,75 @@ class BankOperator:
             self.fused_geom = None if idx_np is None else \
                 ski_fused.build_fused_geometry(idx_np, w_np,
                                                int(grid.shape[0]))
+            self._interp = None if idx_np is None else \
+                ski_fused.Interpolation(self.idx, self.w,
+                                        int(grid.shape[0]), self._sel_cells)
         if like is not None and fused == "auto":
             self.fused = like.fused
-        elif self.idx is None:
-            self.fused = False     # an exact grid has no W to fuse around
+        elif self.idx is None or self.d > 1:
+            # an exact grid has no W to fuse around; a multi-axis bank
+            # takes the unfused Kronecker cycle
+            self.fused = False
         else:
             self.fused = ski_fused.resolve_fused(fused, self.fused_geom)
         self.grid = grid
-        self.m_grid = int(grid.shape[0])
-        self.L = 2 * self.m_grid - 2
-        self._dt0 = grid - grid[0]
+        if self.d == 1:
+            self.m_grid = int(grid.shape[0])
+            self.L = 2 * self.m_grid - 2
+            self._dt0 = grid - grid[0]
+        else:
+            self.m_grid = int(np.prod(self.shape))
+            self.L = self._dt0 = None
         self.sigma_n = float(sigma_n)
         self.jitter = float(jitter)
         self.noise2 = float(sigma_n) ** 2 + float(jitter)
+
+    def _init_nd(self, x):
+        """Multi-axis geometry: full product grids ("kron") share the
+        per-axis data grids; gappy or jittered product data ("product")
+        per-axis inducing grids and one outer-product W.  Anything else
+        has no shared FFT geometry."""
+        xc = x.detach().cpu().numpy().astype(np.float64)
+        info = classify_grid_nd(xc)
+        if info.kind not in ("kron", "product"):
+            raise ValueError(
+                "multi-axis BankOperator needs 'kron' or 'product' "
+                "structure (data.grid.classify_grid_nd): a full product "
+                "grid in canonical row-major order, or gappy/jittered "
+                "points over per-axis grids; irregular (n, d) inputs have "
+                "no shared FFT geometry: use sequential sessions")
+        self.structure = info.kind
+        self.fused_geom = None
+        dev = x.device
+        if info.kind == "kron":
+            self.shape = tuple(int(m) for m in info.shape)
+            self.axis_grids = tuple(torch.as_tensor(g, dtype=x.dtype,
+                                                    device=dev)
+                                    for g in info.grids)
+            self.idx = self.w = None
+            self._sel_cells = None
+            self._interp = None
+            return x
+        grids, axis_idx, axis_w = [], [], []
+        for a in range(self.d):
+            g = build_inducing_grid(xc[:, a], spacing=info.axes[a].h)
+            ia, wa = interp_weights(xc[:, a], g)
+            grids.append(g)
+            axis_idx.append(ia)
+            axis_w.append(wa)
+        self.shape = tuple(int(g.shape[0]) for g in grids)
+        self.axis_grids = tuple(torch.as_tensor(g, dtype=x.dtype, device=dev)
+                                for g in grids)
+        strides = np.ones(self.d, np.int64)
+        for a in range(self.d - 2, -1, -1):
+            strides[a] = strides[a + 1] * self.shape[a + 1]
+        IDX, WW = _outer_taps(axis_idx, axis_w, strides)
+        self.idx = torch.as_tensor(IDX, dtype=torch.int64, device=dev)
+        self.w = torch.as_tensor(WW, dtype=x.dtype, device=dev)
+        self._sel_cells = _selection_cells(IDX, WW)
+        self._interp = ski_fused.Interpolation(
+            self.idx, self.w, int(np.prod(self.shape)), self._sel_cells)
+        return x
 
     # -- per-member first columns (the only per-family computation)
 
@@ -145,16 +235,66 @@ class BankOperator:
             out[i, :J.shape[0]] = J
         return out
 
+    def axis_first_columns(self, thetas, dtype):
+        """Multi-axis banks: per axis, (B, m_a), member b's axis-a factor
+        on that axis's grid offsets (theta split as ``ops.theta_blocks``)."""
+        cols = [[] for _ in range(self.d)]
+        for i, kind in enumerate(self.kinds):
+            tbs = kops.theta_blocks(kind, thetas[i])
+            for a, (k, tb) in enumerate(zip(self.kinds_split[i], tbs)):
+                dt = (self.axis_grids[a] - self.axis_grids[a][0]).to(dtype)
+                cols[a].append(_column(k, tb, dt))
+        return [torch.stack(c) for c in cols]
+
+    def _axis_direction_spectra(self, thetas, dtype, m_max: int):
+        """Multi-axis bank tangents: per axis, (B, m_max, L_f) spectra.
+        Direction j of member b multiplies, on axis a, the tangent
+        spectrum (j in axis a's parameter block: the Kronecker product
+        rule) or the axis's base spectrum; padded directions j >= m_b
+        carry zeros on axis 0, so their product vanishes.  The tangent
+        columns are the closed-form Jacobians (no jacfwd)."""
+        out = [[] for _ in range(self.d)]
+        for i, kind in enumerate(self.kinds):
+            tbs = kops.theta_blocks(kind, thetas[i])
+            sizes = [kops.FLAT_NPARAMS[k] for k in self.kinds_split[i]]
+            offs = np.concatenate([[0], np.cumsum(sizes)])
+            m_b = int(offs[-1])
+            for a, (k, tb) in enumerate(zip(self.kinds_split[i], tbs)):
+                dt = (self.axis_grids[a] - self.axis_grids[a][0]).to(dtype)
+                base = torch.fft.rfft(_embed(_column(k, tb, dt)))
+                tang = torch.fft.rfft(_embed(_column_jacobian(k, tb, dt)),
+                                      dim=-1)
+                lam = base[None].repeat(m_max, 1)
+                lam[int(offs[a]):int(offs[a + 1])] = tang
+                if a == 0 and m_b < m_max:
+                    lam[m_b:] = 0.0
+                out[a].append(lam)
+        return [torch.stack(o) for o in out]
+
+    def _grid_block(self, U):
+        """(m_grid, B, ...) flat grid block -> (m_1, ..., m_d, B, ...)."""
+        return U.reshape(self.shape + tuple(U.shape[1:]))
+
+    def _strang_lam_nd(self, thetas, dtype, floor: float = 1e-12):
+        """(B, m_1, ..., m_d): each member's Kronecker Strang spectrum
+        (the outer product of its per-axis Strang spectra) plus noise."""
+        lams = [torch.stack([_strang_spectrum(t, 0.0, floor) for t in c])
+                for c in self.axis_first_columns(thetas, dtype)]
+        Lam = lams[0]
+        for lb in lams[1:]:
+            Lam = Lam[..., None] * lb.reshape(
+                (self.B,) + (1,) * (Lam.ndim - 1) + (lb.shape[1],))
+        return Lam + self.noise2
+
     # -- the shared sparse interpolation (identity on exact grids)
 
     def _W(self, U):
         """(m_grid, ...) -> (n, ...)."""
-        return U if self.idx is None else interp_gather(self.idx, self.w, U)
+        return U if self._interp is None else self._interp.gather(U)
 
     def _Wt(self, V):
         """(n, ...) -> (m_grid, ...)."""
-        return V if self.idx is None else \
-            interp_scatter(self.idx, self.w, self.m_grid, V)
+        return V if self._interp is None else self._interp.scatter(V)
 
     def _conv(self, lamT, U, divide: bool = False):
         """irfft(lamT * rfft(pad_L(U))) (or the quotient by lamT) over
@@ -169,8 +309,21 @@ class BankOperator:
         """(n, B, c) -> (n, B, c) bank gram matvec.  Fused: the B
         spectra are built here and every call is one B7 launch; unfused:
         one rfft/irfft pair over the whole block (L = 2 m_grid - 2)."""
-        T = self.first_columns(thetas, dtype)
         noise2 = self.noise2
+        if self.d > 1:
+            lams = [torch.fft.rfft(_embed(c), dim=-1)
+                    for c in self.axis_first_columns(thetas, dtype)]
+
+            def mv_nd(V):
+                U = self._grid_block(self._Wt(V))
+                for a in range(self.d):
+                    U = _axis_conv_bank(U, a, lams[a], self.shape[a],
+                                        2 * self.shape[a] - 2)
+                return self._W(U.reshape((self.m_grid,) + tuple(V.shape[1:]))
+                               ) + noise2 * V
+
+            return mv_nd
+        T = self.first_columns(thetas, dtype)
         if self.fused:
             geom = self.fused_geom
             lams = ski_fused.spectrum(T, geom)                 # (B, L)
@@ -192,6 +345,19 @@ class BankOperator:
         """(n, B, c) -> (n, B, m_max, c): dK_b/dtheta_i V_b for every
         member and direction through one widened rfft/irfft pair (unfused,
         as in the JAX package)."""
+        if self.d > 1:
+            lams = self._axis_direction_spectra(thetas, dtype,
+                                                int(thetas.shape[1]))
+
+            def tmv_nd(V):
+                U = self._grid_block(self._Wt(V))[..., None, :]
+                for a in range(self.d):
+                    U = _axis_conv_bank(U, a, lams[a], self.shape[a],
+                                        2 * self.shape[a] - 2)
+                return self._W(U.reshape((self.m_grid,)
+                                         + tuple(U.shape[self.d:])))
+
+            return tmv_nd
         R = self.tangent_columns(thetas, dtype)              # (B, mm, m)
         lamT = torch.fft.rfft(_embed(R), dim=-1).permute(2, 0, 1)
 
@@ -207,7 +373,21 @@ class BankOperator:
                      ) -> Callable:
         """Bank circulant CG preconditioner: each member's clipped
         embedding spectrum plus the noise, applied in grid space and
-        sandwiched through the shared W."""
+        sandwiched through the shared W.  Multi-axis banks: each member's
+        Kronecker Strang spectrum and a d-D FFT pair."""
+        if self.d > 1:
+            LamT = torch.movedim(self._strang_lam_nd(thetas, dtype, floor),
+                                 0, -1)[..., None]         # (m1..md, B, 1)
+            dims = tuple(range(self.d))
+
+            def apply_nd(r):
+                U = self._grid_block(self._Wt(r))
+                out = torch.fft.ifftn(torch.fft.fftn(U, dim=dims) / LamT,
+                                      dim=dims).real.to(r.dtype)
+                return self._W(out.reshape((self.m_grid,)
+                                           + tuple(r.shape[1:])))
+
+            return apply_nd
         T = self.first_columns(thetas, dtype)
         lam = torch.fft.rfft(_embed(T), dim=-1).real          # (B, Lf)
         lam = torch.maximum(lam, floor * torch.amax(torch.abs(lam), dim=-1,
@@ -225,10 +405,37 @@ class BankOperator:
         """Per-member SLQ accessors: the n-point Strang circulant on an
         exact grid; on a gappy record (W a selection matrix) the
         determinant-corrected masked circulant over the inducing grid,
-        with the occ/miss geometry shared.  A jittered W returns None
-        (plain bank SLQ)."""
+        with the occ/miss geometry shared.  Multi-axis banks: the d-D
+        analogues (per-member Kronecker Strang spectra).  A jittered W
+        returns None (plain bank SLQ)."""
         if self.idx is not None and self._sel_cells is None:
             return None
+        if self.d > 1:
+            Lam = self._strang_lam_nd(thetas, dtype, floor)  # (B, m1..md)
+            if self.structure == "product":
+                return masked_circulant_slq_precond_bank(Lam,
+                                                         self._sel_cells)
+            LamT = torch.movedim(Lam, 0, -1)[..., None]
+            sq = torch.sqrt(LamT)
+            dims = tuple(range(self.d))
+            shape, n, B = self.shape, self.n, self.B
+
+            def apply_inv_nd(r):                             # (n, B, p)
+                U = r.reshape(shape + tuple(r.shape[1:]))
+                out = torch.fft.ifftn(torch.fft.fftn(U, dim=dims) / LamT,
+                                      dim=dims).real.to(r.dtype)
+                return out.reshape(r.shape)
+
+            def sample_nd(key, p):
+                g = rnd.normal(key, shape + (B, p), device=Lam.device,
+                               dtype=Lam.dtype)
+                z = torch.fft.ifftn(torch.fft.fftn(g, dim=dims) * sq,
+                                    dim=dims).real
+                return z.reshape(n, B, p)
+
+            return SLQPrecond(apply_inv_nd, sample_nd,
+                              torch.sum(torch.log(Lam.reshape(B, -1)),
+                                        dim=1))
         T = self.first_columns(thetas, dtype)
         lam = torch.stack([_strang_spectrum(t, self.noise2, floor)
                            for t in T])                       # (B, m)
@@ -254,7 +461,8 @@ class BankOperator:
         single-operator policy with the bank as a Toeplitz ("exact") or
         SKI ("near") operator of its n and noise."""
         proxy = SimpleNamespace(
-            name={"exact": "toeplitz", "near": "ski"}[self.structure],
+            name={"exact": "toeplitz", "near": "ski", "kron": "kron",
+                  "product": "product_ski"}[self.structure],
             n=self.n, noise2=self.noise2)
         return it.resolve_precond(opts.precond, proxy, opts.precond_rank)
 

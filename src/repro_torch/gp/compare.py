@@ -4,12 +4,14 @@ Counterpart of ``repro/gp/compare.py``.  ``compare(specs, x, y, key=...)``
 evaluates candidate kernels on one data set and returns the
 :class:`ModelReport` list, by one of two paths, as in the JAX package:
 
-  * batched (``batch="auto"`` or ``"on"``): on an exact or near 1-D grid
-    (:func:`batchable`) with every spec on the iterative backend, the
-    whole bank of models x restarts trains as one program
-    (:mod:`repro_torch.gp.batch`; on a near grid one B7 launch per CG or
-    Lanczos iteration), and the Laplace Hessians of every model's modes
-    come from 2 m_max batched gradient evaluations;
+  * batched (``batch="auto"`` or ``"on"``): on an exact or near 1-D grid,
+    or a "kron" or "product" (n, d) grid with one factor per axis in
+    every composite kind (:func:`batchable`), with every spec on the
+    iterative backend, the whole bank of models x restarts trains as one
+    program (:mod:`repro_torch.gp.batch`; on a 1-D near grid one B7
+    launch per CG or Lanczos iteration, on (n, d) grids the unfused
+    Kronecker cycle on ``torch.fft``), and the Laplace Hessians of every
+    model's modes come from 2 m_max batched gradient evaluations;
   * sequential (``batch="off"`` or not batchable): one bound session per
     spec, bind -> fit -> log_evidence.
 """
@@ -28,8 +30,8 @@ from ..core import hyperlik as hl
 from ..core import laplace as _laplace
 from ..core.model_compare import ModelReport, log_bayes_factors
 from ..core.reparam import FlatBox, flat_box, log_prior_volume
-from ..data.grid import classify_grid
-from ..kernels.ref import KINDS
+from ..data.grid import classify_grid, classify_grid_nd
+from ..kernels import ops as kops
 from . import batch as _batch
 from .session import GP
 from .spec import GPSpec, as_spec
@@ -38,17 +40,29 @@ __all__ = ["compare", "log_bayes_factors", "batchable"]
 
 
 def batchable(specs: Sequence[GPSpec], x) -> bool:
-    """True when the candidate bank can train as one batched program
-    (1-D inputs on an exact or near grid, shared policy)."""
+    """True when the candidate bank can train as one batched program:
+    1-D inputs on an exact or near grid, or (n, d) inputs on a "kron" or
+    "product" grid with one registered factor per axis in every spec, and
+    a shared policy."""
     if len(specs) < 2:
         return False
-    if getattr(x, "ndim", 1) != 1:
-        raise _pending.pending("multi-axis inputs", _pending.ND)
-    if classify_grid(x).kind not in ("exact", "near"):
+    xa = np.asarray(x.detach().cpu() if hasattr(x, "detach") else x)
+    d = int(xa.shape[1]) if xa.ndim == 2 else 1
+    if d >= 2:
+        try:
+            if classify_grid_nd(xa).kind not in ("kron", "product"):
+                return False
+        except ValueError:
+            return False
+    elif classify_grid(xa).kind not in ("exact", "near"):
         return False
     first = specs[0]
     for s in specs:
-        if "*" in s.name or s.name not in KINDS:
+        try:
+            factors = kops.split_kind(s.name)
+        except ValueError:
+            return False
+        if len(factors) != d:
             return False
         if s.noise != first.noise or s.solver != first.solver:
             return False

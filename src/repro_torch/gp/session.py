@@ -12,9 +12,11 @@ are immutable: ``fit`` returns a new, fitted session.
     post = gp.predict(xstar)
 
 ``device=None`` means the card.  The port runs the iterative backend on
-the tile operator (irregular 1-D x), the Toeplitz operator (an exact grid)
-and the SKI operator (a near grid: a gappy record); everything else
-raises and names the slice that brings it.
+the tile operator (irregular x), the Toeplitz operator (an exact grid),
+the SKI operator (a near grid: a gappy record), and for a composite
+"a*b" kind on (n, d) x the Kronecker operator (a full product grid) and
+the product-SKI operator (a gappy field); everything else raises and
+names the slice that brings it.
 """
 
 from __future__ import annotations

@@ -81,7 +81,8 @@ class GPSpec:
             except KeyError:
                 raise ValueError(
                     f"unknown covariance kind {self.kernel!r}; registered "
-                    f"kinds: {sorted(C.REGISTRY)} (or pass a Covariance "
+                    f"kinds: {sorted(C.REGISTRY)}, '*'-joined for "
+                    f"separable multi-axis products (or pass a Covariance "
                     f"object)") from None
         if self.solver.backend not in ("auto",) + BACKENDS:
             raise ValueError(

@@ -1,10 +1,14 @@
-"""Matrix-free covariance matvecs: B1 (K @ V) and B2 (stacked tangents).
+"""Matrix-free covariance matvecs: B1 (K @ V), B2 (stacked tangents) and
+their separable-product forms on (n, d) coordinates, B8 and B9.
 
-Counterparts of ``matvec_pallas`` and ``matvec_stacked_tangent_pallas`` in
+Counterparts of ``matvec_pallas``, ``matvec_stacked_tangent_pallas``,
+``matvec_pallas_nd`` and ``matvec_stacked_tangent_pallas_nd`` in
 ``repro/kernels/kernel_matvec.py``.  K is never stored: the CUDA kernels
-(``csrc/tile_matvec.cu``, ``csrc/tile_tangent.cu``) evaluate each tile in
-shared memory and contract it with V there; see ``csrc/tile_sweep.cuh`` for
-the design and what bounds it on an H100.
+(``csrc/tile_matvec.cu``, ``csrc/tile_tangent.cu``,
+``csrc/tile_matvec_nd.cu``, ``csrc/tile_tangent_nd.cu``) evaluate each
+tile in shared memory and contract it with V there; see
+``csrc/tile_sweep.cuh`` and ``csrc/tile_sweep_nd.cuh`` for the design and
+what bounds it on an H100.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -17,9 +21,14 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .ref import N_PARAM_SLOTS, N_SLOTS, matrix_ref, tangent_matrices_ref
+from .ref import (N_PARAM_SLOTS, N_SLOTS, matrix_ref, product_matrix_ref,
+                  product_tangent_matrices_ref, tangent_matrices_ref)
 
 ROW_CHUNK = 1024  # rows per dense block in the plain versions
+# the product kernels take up to MAX_AXES factors and MAX_DIRS_ND
+# tangent directions (csrc/tile_sweep_nd.cuh)
+MAX_AXES = 4
+MAX_DIRS_ND = 10
 
 
 def _check(kind, params, x1, x2, v=None, pdots=None):
@@ -40,7 +49,13 @@ def _check(kind, params, x1, x2, v=None, pdots=None):
                               or pdots.shape[1] != N_PARAM_SLOTS):
         raise ValueError(f"pdots must be (m, {N_PARAM_SLOTS}), got "
                          f"{tuple(pdots.shape)}")
-    tensors = [t for t in (params, x1, x2, v, pdots) if t is not None]
+    return _one_device(params, x1, x2, v, pdots)
+
+
+def _one_device(*tensors):
+    """The one device (cpu or cuda) that the given tensors share, all of
+    one dtype; None entries are skipped."""
+    tensors = [t for t in tensors if t is not None]
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
@@ -73,7 +88,8 @@ def tile_matvec(kind: str, params, x1, x2, v):
     dev = _check(kind, params, x1, x2, v)
     if dev.type == "cpu":
         return tile_matvec_plain(kind, params, x1, x2, v)
-    return _launch_sweep("tile_matvec", kind, params, None, x1, x2, v)
+    return _launch_sweep("tile_matvec", (_cuda.KIND_IDS[kind],),
+                         ("tile_matvec_max_cols",), params, None, x1, x2, v)
 
 
 # ---------------------------------------------------------------------------
@@ -101,10 +117,18 @@ def tile_stacked_tangent_matvec(kind: str, params, pdots, x1, x2, v):
     if dev.type == "cpu":
         return tile_stacked_tangent_matvec_plain(kind, params, pdots, x1,
                                                  x2, v)
-    return _launch_sweep("tile_tangent", kind, params, pdots, x1, x2, v)
+    return _launch_sweep("tile_tangent", (_cuda.KIND_IDS[kind],),
+                         ("tile_tangent_max_cols", int(pdots.shape[0])),
+                         params, pdots, x1, x2, v)
 
 
-def _launch_sweep(name, kind, params, pdots, x1, x2, v):
+def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v):
+    """B1, B2, B8 or B9 on the card: one launch of the C symbol
+    ``name``_<dtype> per chunk of columns of v, (m, n1, b) out (n1, b for
+    a value sweep, ``pdots`` None).  ``lead``: the symbol's leading
+    arguments (B1/B2 the kind's id; B8/B9 d and the packed per-axis ids);
+    ``limit``: the max-cols symbol and its leading arguments (the element
+    size is appended)."""
     sfx = _cuda.dtype_suffix(v.dtype)
     elem = v.element_size()
     m = 1 if pdots is None else int(pdots.shape[0])
@@ -117,24 +141,103 @@ def _launch_sweep(name, kind, params, pdots, x1, x2, v):
     x1 = x1.contiguous()
     x2 = x2.contiguous()
     v = v.contiguous()
-    stream = _cuda.stream_ptr(v.device)
-    if pdots is None:
-        max_cols = _cuda.KERNELS.get("tile_matvec_max_cols")(elem)
-    else:
+    if pdots is not None:
         pdots = pdots.contiguous()
-        max_cols = _cuda.KERNELS.get("tile_tangent_max_cols")(m, elem)
+    dirs = () if pdots is None else (pdots.data_ptr(), m)
+    stream = _cuda.stream_ptr(v.device)
+    max_cols = _cuda.KERNELS.get(limit[0])(*limit[1:], elem)
     for j0 in range(0, b, max_cols):
         w = min(max_cols, b - j0)
-        vp = v.data_ptr() + j0 * elem
-        op = out.data_ptr() + j0 * elem
-        if pdots is None:
-            _cuda.call(f"tile_matvec_{sfx}", _cuda.KIND_IDS[kind],
-                       params.data_ptr(), x1.data_ptr(), n1, x2.data_ptr(),
-                       n2, vp, b, w, op, b, stream)
-        else:
-            _cuda.call(f"tile_tangent_{sfx}", _cuda.KIND_IDS[kind],
-                       params.data_ptr(), pdots.data_ptr(), m,
-                       x1.data_ptr(), n1, x2.data_ptr(), n2, vp, b, w, op, b,
-                       stream)
+        _cuda.call(f"{name}_{sfx}", *lead, params.data_ptr(), *dirs,
+                   x1.data_ptr(), n1, x2.data_ptr(), n2,
+                   v.data_ptr() + j0 * elem, b, w,
+                   out.data_ptr() + j0 * elem, b, stream)
         _cuda.LAUNCHES[name] += 1
     return out[0] if pdots is None else out
+
+
+# ---------------------------------------------------------------------------
+# B8 / B9: separable products over (n, d) coordinates
+# ---------------------------------------------------------------------------
+
+def _check_nd(kinds, params, x1, x2, v, pdots=None):
+    """Validate a product wrapper's inputs; returns their one device."""
+    d = len(kinds)
+    bad = [k for k in kinds if k not in N_SLOTS]
+    if bad:
+        raise ValueError(f"unknown tile kind(s) {bad}; registered: "
+                         f"{sorted(N_SLOTS)}")
+    if not 1 <= d <= MAX_AXES:
+        raise ValueError(f"the product kernels take 1 to {MAX_AXES} "
+                         f"factors, got {d}")
+    for name, x in (("x1", x1), ("x2", x2)):
+        if x.ndim != 2 or x.shape[1] != d:
+            raise ValueError(f"{name} must be (n, {d}), got "
+                             f"{tuple(x.shape)}")
+    if v.ndim != 2 or v.shape[0] != x2.shape[0]:
+        raise ValueError(f"v must be (n2, b) with n2 = {x2.shape[0]}, got "
+                         f"{tuple(v.shape)}")
+    if params.shape != (d, N_PARAM_SLOTS):
+        raise ValueError(f"params must be ({d}, {N_PARAM_SLOTS}), got "
+                         f"{tuple(params.shape)}")
+    if pdots is not None and (pdots.ndim != 3
+                              or pdots.shape[1:] != (d, N_PARAM_SLOTS)
+                              or not 1 <= pdots.shape[0] <= MAX_DIRS_ND):
+        raise ValueError(f"pdots must be (m, {d}, {N_PARAM_SLOTS}) with "
+                         f"1 <= m <= {MAX_DIRS_ND}, got "
+                         f"{tuple(pdots.shape)}")
+    return _one_device(params, x1, x2, v, pdots)
+
+
+def tile_matvec_nd_plain(kinds, params, x1, x2, v,
+                         row_chunk: int = ROW_CHUNK):
+    """prod_a K_a(x1, x2) @ v from dense row blocks of the product tile."""
+    out = [product_matrix_ref(kinds, params, x1[r:r + row_chunk], x2) @ v
+           for r in range(0, x1.shape[0], row_chunk)]
+    return torch.cat(out) if out else v.new_zeros((0, v.shape[1]))
+
+
+def tile_matvec_nd(kinds, params, x1, x2, v):
+    """B8: the separable product K(x1, x2) @ v on (n, d) coordinates,
+    v (n2, b) -> (n1, b), K never stored.  ``kinds`` one tile family per
+    axis, ``params`` the (d, N_PARAM_SLOTS) natural-parameter blocks."""
+    kinds = tuple(kinds)
+    dev = _check_nd(kinds, params, x1, x2, v)
+    if dev.type == "cpu":
+        return tile_matvec_nd_plain(kinds, params, x1, x2, v)
+    return _launch_sweep("tile_matvec_nd", (len(kinds), _kinds_code(kinds)),
+                         ("tile_nd_max_cols", 1, len(kinds)), params, None,
+                         x1, x2, v)
+
+
+def tile_stacked_tangent_matvec_nd_plain(kinds, params, pdots, x1, x2, v,
+                                         row_chunk: int = ROW_CHUNK):
+    """(m, n1, b) product-rule tangents from dense row blocks."""
+    out = [torch.einsum("mrc,cb->mrb", product_tangent_matrices_ref(
+        kinds, params, pdots, x1[r:r + row_chunk], x2), v)
+        for r in range(0, x1.shape[0], row_chunk)]
+    if not out:
+        return v.new_zeros((pdots.shape[0], 0, v.shape[1]))
+    return torch.cat(out, dim=1)
+
+
+def tile_stacked_tangent_matvec_nd(kinds, params, pdots, x1, x2, v):
+    """B9: the m product-kernel tangents, row i of pdots (m, d,
+    N_PARAM_SLOTS) giving sum_a (sum_s pdots[i, a, s] dk_a/dp[s])
+    prod_{b != a} k_b, times v: (m, n1, b), one launch."""
+    kinds = tuple(kinds)
+    dev = _check_nd(kinds, params, x1, x2, v, pdots)
+    if dev.type == "cpu":
+        return tile_stacked_tangent_matvec_nd_plain(kinds, params, pdots,
+                                                    x1, x2, v)
+    return _launch_sweep("tile_tangent_nd", (len(kinds), _kinds_code(kinds)),
+                         ("tile_nd_max_cols", int(pdots.shape[0]),
+                          len(kinds)), params, pdots, x1, x2, v)
+
+
+def _kinds_code(kinds) -> int:
+    """Per-axis family ids packed four bits each (axis a at bits 4a)."""
+    code = 0
+    for a, k in enumerate(kinds):
+        code |= _cuda.KIND_IDS[k] << (4 * a)
+    return code

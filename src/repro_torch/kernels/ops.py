@@ -1,11 +1,16 @@
 """Flat-parameter fronts for the tile kernels.
 
-Counterpart of ``repro/kernels/ops.py`` for 1-D kinds: the flat -> natural
-parameter maps run once here (not per tile), the white-noise diagonal is
-added outside the kernel as (sigma_n^2 + jitter) * v, and the wrappers of
+Counterpart of ``repro/kernels/ops.py``: the flat -> natural parameter
+maps run once here (not per tile), the white-noise diagonal is added
+outside the kernel as (sigma_n^2 + jitter) * v, and the wrappers of
 :mod:`.kernel_matvec` / :mod:`.kernel_tile` do the rest.  The JAX package
 pads to tile multiples with a far-away sentinel; the CUDA kernels mask
 their ragged edges instead, so nothing is padded here.
+
+Composite kinds ("se*matern32") are separable products over (n, d)
+coordinates, one registered factor per axis; theta is the concatenation
+of the per-axis blocks.  Their matvecs are B8, their stacked tangents B9,
+their dense blocks B4 once per factor.
 """
 
 from __future__ import annotations
@@ -14,7 +19,6 @@ import math
 
 import torch
 
-from .. import _pending
 from ..core.covariances import smoothness_from_flat
 from . import kernel_matvec, kernel_tile
 from .ref import N_PARAM_SLOTS
@@ -38,13 +42,35 @@ FLAT_NPARAMS = {"k1": 3, "k2": 5, "se": 1, "matern12": 1, "matern32": 1,
 _SMOOTHNESS = {"k1": (2,), "k2": (2, 4)}
 
 
+def split_kind(kind: str):
+    """"se*matern32" -> ("se", "matern32"); plain kinds -> 1-tuple.
+
+    Raises ValueError naming the tile families for unknown pieces.
+    """
+    parts = tuple(kind.split("*"))
+    bad = [p for p in parts if p not in _FLAT_TO_NATURAL]
+    if bad:
+        raise ValueError(f"unknown kernel factor(s) {bad} in kind {kind!r}; "
+                         f"tile families: {sorted(_FLAT_TO_NATURAL)}")
+    return parts
+
+
 def check_kind(kind: str) -> None:
-    """Raise for composite or unknown kinds."""
-    if "*" in kind:
-        raise _pending.pending(f"composite kind {kind!r}", _pending.ND)
+    """Raise for a kind that is not one tile family (composite kinds go
+    through :func:`split_kind`)."""
     if kind not in _FLAT_TO_NATURAL:
         raise ValueError(f"unknown kernel kind {kind!r}; tile families: "
                          f"{sorted(_FLAT_TO_NATURAL)}")
+
+
+def theta_blocks(kind: str, theta):
+    """Split a composite kind's flat theta into its per-axis blocks."""
+    out, o = [], 0
+    for k in split_kind(kind):
+        nk = FLAT_NPARAMS[k]
+        out.append(theta[o:o + nk])
+        o += nk
+    return out
 
 
 def natural_params(kind: str, theta):
@@ -79,14 +105,58 @@ def natural_tangents(kind: str, theta):
     return out
 
 
+def natural_params_nd(kind: str, theta):
+    """Composite kind -> (d, N_PARAM_SLOTS) per-axis natural parameters."""
+    return torch.stack([natural_params(k, tb) for k, tb in
+                        zip(split_kind(kind), theta_blocks(kind, theta))])
+
+
+def natural_tangents_nd(kind: str, theta):
+    """(m, d, N_PARAM_SLOTS): the natural tangents of the m flat
+    directions of a composite kind.  Direction i moves only the axis that
+    owns theta[i], so row i is zero outside that axis; there it is the
+    axis's own :func:`natural_tangents` row (the closed form of JAX's
+    jacfwd of :func:`natural_params_nd`, block by block)."""
+    kinds = split_kind(kind)
+    blocks = theta_blocks(kind, theta)
+    m = sum(FLAT_NPARAMS[k] for k in kinds)
+    out = torch.zeros((m, len(kinds), N_PARAM_SLOTS), dtype=theta.dtype,
+                      device=theta.device)
+    o = 0
+    for a, (k, tb) in enumerate(zip(kinds, blocks)):
+        nk = FLAT_NPARAMS[k]
+        out[o:o + nk, a] = natural_tangents(k, tb)
+        o += nk
+    return out
+
+
+def check_nd_coords(kind: str, kinds, *xs) -> None:
+    """Raise unless every x is (n, d) with one column per factor."""
+    d = len(kinds)
+    for x in xs:
+        if x.ndim != 2 or x.shape[1] != d:
+            raise ValueError(
+                f"composite kind {kind!r} needs (n, {d}) coordinates (one "
+                f"column per '*'-joined factor), got shape "
+                f"{tuple(x.shape)}")
+
+
 def matvec(kind: str, theta, x1, x2, v):
-    """K(x1, x2) @ v, matrix-free (no noise); v (n2,) or (n2, b)."""
+    """K(x1, x2) @ v, matrix-free (no noise); v (n2,) or (n2, b).
+    Composite kinds take (n, d) coordinates (B8)."""
     squeeze = v.ndim == 1
     if squeeze:
         v = v[:, None]
-    p = natural_params(kind, theta).to(v.dtype)
-    out = kernel_matvec.tile_matvec(kind, p, x1.to(v.dtype), x2.to(v.dtype),
-                                    v)
+    kinds = split_kind(kind)
+    if len(kinds) > 1:
+        check_nd_coords(kind, kinds, x1, x2)
+        p = natural_params_nd(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_matvec_nd(kinds, p, x1.to(v.dtype),
+                                           x2.to(v.dtype), v)
+    else:
+        p = natural_params(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_matvec(kind, p, x1.to(v.dtype),
+                                        x2.to(v.dtype), v)
     return out[:, 0] if squeeze else out
 
 
@@ -97,19 +167,38 @@ def gram_matvec(kind: str, theta, x, v, sigma_n: float = 0.0,
 
 
 def matvec_tangents(kind: str, theta, x1, x2, v):
-    """dK/dtheta_i @ v for all m flat directions in one launch: (m, n1, b)."""
+    """dK/dtheta_i @ v for all m flat directions in one launch: (m, n1, b)
+    (B2; composite kinds B9)."""
     squeeze = v.ndim == 1
     if squeeze:
         v = v[:, None]
-    p = natural_params(kind, theta).to(v.dtype)
-    pdots = natural_tangents(kind, theta).to(v.dtype)
-    out = kernel_matvec.tile_stacked_tangent_matvec(
-        kind, p, pdots, x1.to(v.dtype), x2.to(v.dtype), v)
+    kinds = split_kind(kind)
+    if len(kinds) > 1:
+        check_nd_coords(kind, kinds, x1, x2)
+        p = natural_params_nd(kind, theta).to(v.dtype)
+        pdots = natural_tangents_nd(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_stacked_tangent_matvec_nd(
+            kinds, p, pdots, x1.to(v.dtype), x2.to(v.dtype), v)
+    else:
+        p = natural_params(kind, theta).to(v.dtype)
+        pdots = natural_tangents(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_stacked_tangent_matvec(
+            kind, p, pdots, x1.to(v.dtype), x2.to(v.dtype), v)
     return out[:, :, 0] if squeeze else out
 
 
 def matrix(kind: str, theta, x1, x2):
-    """Dense K(x1, x2), no noise."""
+    """Dense K(x1, x2), no noise.  Composite kinds multiply the per-axis
+    blocks, one B4 launch per factor (predict's chunked cross blocks,
+    never (n, n))."""
+    kinds = split_kind(kind)
+    if len(kinds) > 1:
+        check_nd_coords(kind, kinds, x1, x2)
+        out = None
+        for a, (k, tb) in enumerate(zip(kinds, theta_blocks(kind, theta))):
+            ka = matrix(k, tb, x1[:, a], x2[:, a])
+            out = ka if out is None else out * ka
+        return out
     dtype = torch.promote_types(x1.dtype, x2.dtype)
     p = natural_params(kind, theta).to(dtype)
     return kernel_tile.tile_matrix(kind, p, x1.to(dtype), x2.to(dtype))

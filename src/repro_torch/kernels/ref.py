@@ -130,3 +130,40 @@ def tangent_matrices_ref(kind: str, params, pdots, x1, x2):
     _, g = tile_grad(kind, x1[:, None] - x2[None, :], params)
     ns = g.shape[-1]
     return torch.einsum("abs,ms->mab", g, pdots[:, :ns].to(g.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Separable products over (n, d) coordinates (composite kinds)
+# ---------------------------------------------------------------------------
+
+def product_matrix_ref(kinds, params, x1, x2):
+    """Dense prod_a k_a(x1[:, a] - x2[:, a]), params (d, N_PARAM_SLOTS);
+    the factors multiply in axis order, as the reference product tile."""
+    out = None
+    for a, k in enumerate(kinds):
+        ka = tile(k, x1[:, a, None] - x2[None, :, a], params[a])
+        out = ka if out is None else out * ka
+    return out
+
+
+def product_tangent_matrices_ref(kinds, params, pdots, x1, x2):
+    """(m, n1, n2) dense tangents of a product kernel, pdots (m, d,
+    N_PARAM_SLOTS): the product rule, sum over axes a of
+    (sum_s pdots[i, a, s] dk_a/dp[s]) * prod_{b != a} k_b."""
+    ks, gs = [], []
+    for a, k in enumerate(kinds):
+        ka, ga = tile_grad(k, x1[:, a, None] - x2[None, :, a], params[a])
+        ks.append(ka)
+        gs.append(ga)
+    out = None
+    for a in range(len(kinds)):
+        others = None
+        for b in range(len(kinds)):
+            if b != a:
+                others = ks[b] if others is None else others * ks[b]
+        ns = gs[a].shape[-1]
+        dk = torch.einsum("rcs,ms->mrc", gs[a],
+                          pdots[:, a, :ns].to(gs[a].dtype))
+        term = dk if others is None else dk * others
+        out = term if out is None else out + term
+    return out

@@ -1,8 +1,10 @@
-"""The fused SKI sandwich: B5 (gram), B6 (stacked tangents) and B7 (the
-gram of a bank of members that share one geometry).
+"""The fused SKI sandwich: B5 (gram), B6 (stacked tangents), B7 (the gram
+of a bank of members that share one geometry), and on 2-D product grids
+B10 (gram) and B11 (stacked tangents).
 
-Counterparts of ``fused_gram_matvec``, ``fused_tangent_matvecs`` and
-``fused_bank_matvec`` in ``repro/kernels/ski_fused.py``.  On near-grid
+Counterparts of ``fused_gram_matvec``, ``fused_tangent_matvecs``,
+``fused_bank_matvec``, ``fused_gram_matvec_nd`` and
+``fused_tangent_matvecs_nd`` in ``repro/kernels/ski_fused.py``.  On near-grid
 data every point sits in a distinct cell of the inducing grid, so W and
 W^T are banded maps around one row gather (``occ``: cell -> point row,
 ``cell``: point -> cell):
@@ -18,6 +20,13 @@ sandwich with a hand-written FFT; see ``csrc/ski_fft.cuh`` for the design
 and what bounds it on an H100.  The spectrum is built outside the kernel
 (:func:`spectrum`), once per theta and solve, on ``torch.fft``; natural
 frequency order, so nothing is permuted.
+
+On a 2-D product grid (m1 x m2 cells, flat row-major) the same sandwich
+runs with the outer product of two axis spectra, lam1 (L1,) and lam2
+(L2,), each a power-of-two embedding of its axis's first column
+(``csrc/ski_gram_2d.cu``, ``csrc/ski_tangent_2d.cu``, FFT passes in
+``csrc/ski_fft_2d.cuh``); the joint stencil's s1 s2 flat offsets
+d1 m2 + d2 travel as an explicit list.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -54,6 +63,36 @@ def interp_scatter(idx, w, m_grid: int, V):
     contrib = (w * V[:, None]).reshape((-1,) + tuple(V.shape[1:]))
     out = V.new_zeros((m_grid,) + tuple(V.shape[1:]))
     return out.index_add_(0, idx.reshape(-1), contrib)
+
+
+class Interpolation:
+    """W as its (n, s) index/weight rows over m_grid cells, applied by
+    :func:`interp_gather` / :func:`interp_scatter`.  When W is a selection
+    (``cells``: one weight 1 per row, on distinct cells, as on a gappy
+    record) the applies are a plain gather and scatter: the same numbers
+    (the other weights are exact zeros) in a few operations, which the
+    preconditioners and the unfused bank run once per CG iteration."""
+
+    def __init__(self, idx, w, m_grid: int, cells=None):
+        self.idx = idx
+        self.w = w
+        self.m_grid = int(m_grid)
+        self.cells = None if cells is None else torch.as_tensor(
+            cells, dtype=torch.int64, device=idx.device)
+
+    def gather(self, U):
+        """W u: (m_grid, ...) -> (n, ...)."""
+        if self.cells is not None:
+            return U[self.cells]
+        return interp_gather(self.idx, self.w, U)
+
+    def scatter(self, V):
+        """W^T v: (n, ...) -> (m_grid, ...)."""
+        if self.cells is not None:
+            out = V.new_zeros((self.m_grid,) + tuple(V.shape[1:]))
+            out[self.cells] = V
+            return out
+        return interp_scatter(self.idx, self.w, self.m_grid, V)
 
 
 # ---------------------------------------------------------------------------
@@ -100,9 +139,23 @@ class FusedSKIGeometry:
                 wcell=torch.as_tensor(self.wcell, dtype=dtype, device=dev),
                 cell=torch.as_tensor(self.cell, dtype=torch.int32,
                                      device=dev),
+                offs=torch.as_tensor(self.offs, dtype=torch.int32,
+                                     device=dev),
                 idx=torch.as_tensor(self.idx, dtype=torch.int64, device=dev),
                 w=torch.as_tensor(self.w, dtype=dtype, device=dev))
         return self._tensors[key]
+
+
+def _axis_band(idx_a: np.ndarray):
+    """(cell_a, offs_a) of one axis's stencil rows, or None when the rows
+    are not one uniform band."""
+    s = idx_a.shape[1]
+    center = 1 if s == 4 else 0            # cubic taps -1..2, linear 0..1
+    cell = idx_a[:, center].astype(np.int64)
+    offs = idx_a[0] - cell[0]
+    if not np.all(idx_a == cell[:, None] + offs[None, :]):
+        return None
+    return cell, offs
 
 
 def build_fused_geometry(idx, w, m_grid: int) -> Optional[FusedSKIGeometry]:
@@ -112,11 +165,10 @@ def build_fused_geometry(idx, w, m_grid: int) -> Optional[FusedSKIGeometry]:
     idx = np.asarray(idx)
     w = np.asarray(w, np.float64)
     n, s = idx.shape
-    center = 1 if s == 4 else 0            # cubic taps -1..2, linear 0..1
-    cell = idx[:, center].astype(np.int64)
-    offs = idx[0] - cell[0]
-    if not np.all(idx == cell[:, None] + offs[None, :]):
+    band = _axis_band(idx)
+    if band is None:
         return None                        # non-stencil rows
+    cell, offs = band
     if not np.array_equal(offs, offs[0] + np.arange(s)):
         return None                        # the kernels take d0 .. d0+s-1
     if np.unique(cell).shape[0] != n:
@@ -161,8 +213,11 @@ def spectrum(first_column, geom: FusedSKIGeometry):
     [t_0 .. t_{m-1}, 0 .., t_{m-1} .. t_1] padded to L, its FFT's real
     part over L (the kernels' inverse transform is un-normalised).
     """
-    t = first_column
-    m, L = geom.m_grid, geom.L
+    return _axis_spectrum(first_column, geom.m_grid, geom.L)
+
+
+def _axis_spectrum(t, m: int, L: int):
+    """:func:`spectrum` of first column(s) t (..., m) at length L."""
     c = t.new_zeros(t.shape[:-1] + (L,))
     c[..., :m] = t
     c[..., L - m + 1:] = torch.flip(t[..., 1:], dims=(-1,))
@@ -284,10 +339,6 @@ def _launch(name, geom, lams, noise2, v, out, *, B, c, m_dirs):
         return out
     t = geom.tensors(v.device, v.dtype)
     cols = m_dirs * B * ((c + 1) // 2)
-    if cols > 65535:
-        raise ValueError(f"{cols} packed columns (directions x members x "
-                         f"ceil(columns / 2)); one launch takes at most "
-                         f"65535")
     # two ping-pong buffers of (cols, L) complex values
     scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
                           device=v.device)
@@ -296,6 +347,204 @@ def _launch(name, geom, lams, noise2, v, out, *, B, c, m_dirs):
                t["occ"].data_ptr(), t["wcell"].data_ptr(),
                t["cell"].data_ptr(), lams.data_ptr(), int(m_dirs),
                float(noise2), v.data_ptr(), int(B), int(c), out.data_ptr(),
+               scratch[0].data_ptr(), scratch[1].data_ptr(),
+               _cuda.stream_ptr(v.device))
+    _cuda.LAUNCHES[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 2-D product grids: B10 / B11
+# ---------------------------------------------------------------------------
+
+class FusedSKIGeometry2D(FusedSKIGeometry):
+    """Constants of the fused 2-D product-SKI sandwich for one (x, grids,
+    W).  The flat-cell analogue of :class:`FusedSKIGeometry`:
+
+    shape: (m1, m2) inducing cells per axis; cells are c = r1 m2 + r2.
+    occ:   (m1 m2,) int32, cell -> data row (n marks an empty cell).
+    wcell: (m1 m2, s1 s2) the occupant's outer-product stencil weights.
+    cell:  (n,) int32, data row -> its distinct flat cell.
+    offs:  the s1 s2 flat offsets d1 m2 + d2 of the joint stencil.
+    Ls:    (L1, L2), per axis a power of two >= 2 m_a - 1.
+    idx, w: the joint (n, s1 s2) rows of W, for the plain versions.
+    """
+
+    def __init__(self, n, shape, occ, wcell, cell, offs, Ls, idx, w):
+        self.n = int(n)
+        self.shape = tuple(int(m) for m in shape)
+        self.m_grid = self.shape[0] * self.shape[1]
+        self.occ = occ
+        self.wcell = wcell
+        self.cell = cell
+        self.offs = tuple(int(d) for d in offs)
+        self.Ls = tuple(int(L) for L in Ls)
+        self.idx = idx
+        self.w = w
+        self._tensors = {}
+
+
+def build_fused_geometry_nd(axis_idx, axis_w,
+                            shape) -> Optional[FusedSKIGeometry2D]:
+    """Fused 2-D constants from the per-axis (idx, w) of
+    ``interp_weights``, or None when d != 2, an axis is not one uniform
+    band, or two points share a flat cell (then only the unfused
+    composition applies).  A uniform band keeps every stencil inside both
+    axes' ranges, so the flat shifts d1 m2 + d2 never wrap across a row."""
+    if len(shape) != 2:
+        return None
+    bands = [_axis_band(np.asarray(ia)) for ia in axis_idx]
+    if any(b is None for b in bands):
+        return None
+    m1, m2 = int(shape[0]), int(shape[1])
+    (c1, o1), (c2, o2) = bands
+    n = c1.shape[0]
+    cell = c1 * m2 + c2
+    if np.unique(cell).shape[0] != n:
+        return None
+    offs = [int(d1) * m2 + int(d2) for d1 in o1 for d2 in o2]
+    w1 = np.asarray(axis_w[0], np.float64)
+    w2 = np.asarray(axis_w[1], np.float64)
+    wjoint = (w1[:, :, None] * w2[:, None, :]).reshape(n, -1)
+    idx = (np.asarray(axis_idx[0], np.int64)[:, :, None] * m2
+           + np.asarray(axis_idx[1], np.int64)[:, None, :]).reshape(n, -1)
+    occ = np.full(m1 * m2, n, np.int32)
+    occ[cell] = np.arange(n, dtype=np.int32)
+    wcell = np.zeros((m1 * m2, wjoint.shape[1]), np.float64)
+    wcell[cell] = wjoint
+    return FusedSKIGeometry2D(n, (m1, m2), occ, wcell, cell.astype(np.int32),
+                              offs, (embed_length(m1), embed_length(m2)),
+                              idx, wjoint)
+
+
+def spectrum_nd(first_columns, geom: FusedSKIGeometry2D):
+    """Per-axis 1/L_a-normalised spectra (lam1 (..., L1), lam2 (..., L2));
+    the kernels multiply by their outer product."""
+    return tuple(_axis_spectrum(t, geom.shape[a], geom.Ls[a])
+                 for a, t in enumerate(first_columns))
+
+
+def tangent_spectra_nd(kron, theta, geom: FusedSKIGeometry2D, dtype):
+    """The spectrum pairs of the m flat directions, ((m, L1), (m, L2)).
+
+    Direction i in axis a's parameter block multiplies by (dlam_a^i)
+    (x) (the other axis's base spectrum): the product rule at operator
+    level.  The tangent first columns are the closed-form Jacobians of
+    the axis Toeplitz operators (no jacfwd)."""
+    bases = spectrum_nd(kron.first_columns(theta, dtype), geom)
+    pairs = ([], [])
+    for a in range(2):
+        rows = kron.axes_ops[a].first_column_jacobian(
+            theta[kron.slices[a]], dtype)                 # (p_a, m_a)
+        lam_t = _axis_spectrum(rows, geom.shape[a], geom.Ls[a])
+        other = bases[1 - a][None].expand(rows.shape[0], -1)
+        pairs[a].append(lam_t)
+        pairs[1 - a].append(other)
+    return (torch.cat(pairs[0]).contiguous(),
+            torch.cat(pairs[1]).contiguous())
+
+
+def _grid_conv_2d_plain(geom, lam1, lam2, u):
+    """irfft2((lam1 (x) lam2) * rfft2(pad(u))) cells < (m1, m2), u
+    (m1 m2, b) flat."""
+    (m1, m2), (L1, L2) = geom.shape, geom.Ls
+    U = u.reshape((m1, m2) + tuple(u.shape[1:]))
+    Uh = torch.fft.rfftn(U, s=(L1, L2), dim=(0, 1))
+    lam = lam1[:, None] * lam2[None, : L2 // 2 + 1]
+    lam = lam.reshape(lam.shape + (1,) * (U.ndim - 2))
+    ku = torch.fft.irfftn(lam * Uh, s=(L1, L2), dim=(0, 1), norm="forward")
+    return ku[:m1, :m2].reshape(u.shape)
+
+
+def fused_gram_matvec_nd_plain(geom: FusedSKIGeometry2D, lams, noise2: float,
+                               v):
+    """W irfft2((lam1 (x) lam2) rfft2(pad(W^T v))) + noise2 v on
+    ``torch.fft``."""
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
+    ku = _grid_conv_2d_plain(geom, lams[0], lams[1], u)
+    return interp_gather(t["idx"], t["w"], ku) + noise2 * v
+
+
+def fused_tangent_matvecs_nd_plain(geom: FusedSKIGeometry2D, lam_pairs, v):
+    """W irfft2((lam1[i] (x) lam2[i]) rfft2(pad(W^T v))) for every
+    direction i: (m, n, b)."""
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
+    out = [interp_gather(t["idx"], t["w"],
+                         _grid_conv_2d_plain(geom, l1, l2, u))
+           for l1, l2 in zip(*lam_pairs)]
+    return torch.stack(out) if out else v.new_zeros((0,) + tuple(v.shape))
+
+
+def _check_2d(geom: FusedSKIGeometry2D, lams, v):
+    """Validate a 2-D wrapper's inputs; returns the device they lie on."""
+    if v.ndim != 2 or v.shape[0] != geom.n:
+        raise ValueError(f"v must be (n, b) with n = {geom.n}, got "
+                         f"{tuple(v.shape)}")
+    lam1, lam2 = lams
+    if (lam1.ndim != 2 or lam2.ndim != 2 or lam1.shape[0] != lam2.shape[0]
+            or lam1.shape[1] != geom.Ls[0] or lam2.shape[1] != geom.Ls[1]):
+        raise ValueError(f"spectra must be (rows, {geom.Ls[0]}) and (rows, "
+                         f"{geom.Ls[1]}), got {tuple(lam1.shape)} and "
+                         f"{tuple(lam2.shape)}")
+    for lam in lams:
+        if v.device != lam.device:
+            raise ValueError(f"v and the spectra must be on one device, "
+                             f"got {v.device} and {lam.device}")
+        if v.dtype != lam.dtype:
+            raise TypeError(f"v and the spectra must share one dtype, got "
+                            f"{v.dtype} and {lam.dtype}")
+        if not lam.is_contiguous():
+            raise ValueError("the spectra must be contiguous")
+    if not v.is_contiguous():
+        raise ValueError("v must be contiguous")
+    if v.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {v.device}")
+    return v.device
+
+
+def fused_gram_matvec_nd(geom: FusedSKIGeometry2D, lams, noise2: float, v):
+    """B10: (W K_kron W^T + noise2 I) v on a 2-D product grid, v (n, b)
+    -> (n, b), one launch.  ``lams`` = (lam1 (L1,), lam2 (L2,)) from
+    :func:`spectrum_nd`."""
+    lams2 = (lams[0][None], lams[1][None])
+    dev = _check_2d(geom, lams2, v)
+    if dev.type == "cpu":
+        return fused_gram_matvec_nd_plain(geom, lams, noise2, v)
+    return _launch_2d("ski_gram_2d", geom, lams2, noise2, v,
+                      torch.empty_like(v), m_dirs=1)
+
+
+def fused_tangent_matvecs_nd(geom: FusedSKIGeometry2D, lam_pairs, v):
+    """B11: W (dK_kron/dtheta_i) W^T v for all m directions on a 2-D
+    product grid, one launch: (m, n, b).  ``lam_pairs`` = ((m, L1),
+    (m, L2)) from :func:`tangent_spectra_nd`.  No noise."""
+    dev = _check_2d(geom, lam_pairs, v)
+    if dev.type == "cpu":
+        return fused_tangent_matvecs_nd_plain(geom, lam_pairs, v)
+    m = int(lam_pairs[0].shape[0])
+    return _launch_2d("ski_tangent_2d", geom, lam_pairs, 0.0, v,
+                      v.new_empty((m,) + tuple(v.shape)), m_dirs=m)
+
+
+def _launch_2d(name, geom, lams, noise2, v, out, *, m_dirs):
+    """One launch of B10 or B11 into ``out``."""
+    if out.numel() == 0:
+        return out
+    t = geom.tensors(v.device, v.dtype)
+    c = int(v.shape[1])
+    planes = m_dirs * ((c + 1) // 2)
+    L1, L2 = geom.Ls
+    # two ping-pong buffers of (planes, L1, L2) complex values
+    scratch = torch.empty((2, planes, L1 * L2, 2), dtype=v.dtype,
+                          device=v.device)
+    _cuda.call(f"{name}_{_cuda.dtype_suffix(v.dtype)}", int(v.shape[0]),
+               geom.shape[0], geom.shape[1], L1, L2, len(geom.offs),
+               t["offs"].data_ptr(), t["occ"].data_ptr(),
+               t["wcell"].data_ptr(), t["cell"].data_ptr(),
+               lams[0].data_ptr(), lams[1].data_ptr(), int(m_dirs),
+               float(noise2), v.data_ptr(), c, out.data_ptr(),
                scratch[0].data_ptr(), scratch[1].data_ptr(),
                _cuda.stream_ptr(v.device))
     _cuda.LAUNCHES[name] += 1

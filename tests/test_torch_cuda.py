@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2, B4, B5, B6 and B7 against their plain PyTorch
-versions.
+"""The CUDA kernels B1, B2, B4, B5, B6, B7, B8, B9, B10 and B11 against
+their plain PyTorch versions.
 
 These tests need a card and skip without one.  They import neither JAX nor
 the JAX package, so they also run where JAX is not installed:
@@ -179,10 +179,109 @@ def test_cuda_bank_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
         tsf.fused_bank_matvec(geom, lams, 0.0, V[:, :, ::2])
     with pytest.raises(ValueError, match="one device"):
         tsf.fused_bank_matvec(geom, lams.cpu(), 0.0, V)
-    # 65536 packed columns: one more than a launch takes
-    wide = torch.zeros((geom.n, 1, 2 * 65536), device=cuda_device,
-                       dtype=torch.float64)
+    # 65536 packed columns, one more than gridDim.y holds: every index
+    # space is on gridDim.x, so this is one launch like any other
+    theta = torch.tensor(THETAS[("k2", "mid")], dtype=torch.float64)
+    grid = topers.ToeplitzOperator("k2", op.grid)
+    lam = tsf.spectrum(grid.first_column(theta), geom).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    wide = torch.randn((geom.n, 1, 2 * 65536), generator=gen,
+                       device=cuda_device, dtype=torch.float64)
     _cuda.reset_launches()
-    with pytest.raises(ValueError, match="65535"):
-        tsf.fused_bank_matvec(geom, lams[:1], 0.0, wide)
-    assert _cuda.LAUNCHES["ski_bank"] == 0
+    got = tsf.fused_bank_matvec(geom, lam[None], 1e-4, wide)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ski_bank"] == 1
+    assert _relerr(got, tsf.fused_bank_matvec_plain(geom, lam[None], 1e-4,
+                                                    wide)) < 1e-12
+
+
+ND_THETAS = {
+    "se*matern32": [np.log(1.3), np.log(0.7)],
+    "k2*se": [np.log(3.0), np.log(1.1), 0.1, np.log(1.9), -0.2,
+              np.log(0.8)],
+    "se*matern32*matern12": [np.log(1.6), np.log(0.9), np.log(0.5)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("kind", sorted(ND_THETAS))
+def test_cuda_product_tile_kernels_match_plain(cuda_device, kind, dtype,
+                                               tol):
+    """B8 and B9 against their plain versions, ragged sizes, d = 2 and 3."""
+    d = kind.count("*") + 1
+    kinds = tops.split_kind(kind)
+    rng = np.random.default_rng(d)
+    x1 = rng.uniform(0.0, 8.0, (333, d))
+    x2 = rng.uniform(0.0, 8.0, (301, d))
+    v = rng.standard_normal((301, 9))
+    theta = torch.tensor(ND_THETAS[kind], dtype=torch.float64)
+    p = tops.natural_params_nd(kind, theta).to(cuda_device, dtype)
+    pd = tops.natural_tangents_nd(kind, theta).to(cuda_device, dtype)
+    a, b, vv = (torch.tensor(z, device=cuda_device, dtype=dtype)
+                for z in (x1, x2, v))
+    _cuda.reset_launches()
+    out = tkm.tile_matvec_nd(kinds, p, a, b, vv)
+    tan = tkm.tile_stacked_tangent_matvec_nd(kinds, p, pd, a, b, vv)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["tile_matvec_nd"] == 1
+    assert _cuda.LAUNCHES["tile_tangent_nd"] == 1
+    assert tan.shape == (pd.shape[0], 333, 9)
+    assert _relerr(out, tkm.tile_matvec_nd_plain(kinds, p, a, b, vv)) < tol
+    want = tkm.tile_stacked_tangent_matvec_nd_plain(kinds, p, pd, a, b, vv)
+    assert _relerr(tan, want) < tol
+
+
+def _field_geometry(shape=(40, 24), drop=0.15, seed=10):
+    """A gappy 2-D field's product-SKI operator (W a selection matrix)."""
+    axes = [h * np.arange(m) for m, h in zip(shape, (0.5, 0.25))]
+    x = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 2)
+    x = x[np.random.default_rng(seed).uniform(size=x.shape[0]) >= drop]
+    return topers.select_operator("se*matern32", torch.tensor(x), 0.05,
+                                  1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b", [1, 8, 9, 70])
+def test_cuda_ski_2d_kernels_match_plain(cuda_device, dtype, tol, b):
+    """B10 and B11 against their plain (torch.fft) versions."""
+    op = _field_geometry()
+    assert op.name == "product_ski" and op.fused
+    geom = op.fused_geom
+    theta = torch.tensor(ND_THETAS["se*matern32"], dtype=torch.float64)
+    lams = tsf.spectrum_nd(op._kron.first_columns(theta), geom)
+    pairs = tsf.tangent_spectra_nd(op._kron, theta, geom, torch.float64)
+    rng = np.random.default_rng(b)
+    v = torch.tensor(rng.standard_normal((geom.n, b)), device=cuda_device,
+                     dtype=dtype)
+    lams = tuple(lam.to(cuda_device, dtype) for lam in lams)
+    pairs = tuple(pr.to(cuda_device, dtype) for pr in pairs)
+    _cuda.reset_launches()
+    got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
+    tan = tsf.fused_tangent_matvecs_nd(geom, pairs, v)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["ski_gram_2d"] == 1
+    assert _cuda.LAUNCHES["ski_tangent_2d"] == 1
+    assert got.shape == (geom.n, b) and tan.shape == (2, geom.n, b)
+    assert _relerr(got, tsf.fused_gram_matvec_nd_plain(geom, lams, 1e-3,
+                                                       v)) < tol
+    assert _relerr(tan, tsf.fused_tangent_matvecs_nd_plain(geom, pairs,
+                                                           v)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_ski_2d_wrappers_refuse_what_the_kernels_cannot_take(
+        cuda_device):
+    geom = _field_geometry((12, 9)).fused_geom
+    lams = (torch.zeros(geom.Ls[0], device=cuda_device, dtype=torch.float64),
+            torch.zeros(geom.Ls[1], device=cuda_device, dtype=torch.float64))
+    v = torch.zeros((geom.n, 4), device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsf.fused_gram_matvec_nd(geom, lams, 0.0, v[:, ::2])
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_gram_matvec_nd(geom, (lams[0].cpu(), lams[1]), 0.0, v)
+    with pytest.raises(TypeError):
+        tsf.fused_gram_matvec_nd(geom, lams, 0.0, v.to(torch.float32))

@@ -113,6 +113,16 @@ def test_cpu_tensors_never_launch_a_kernel():
                            torch.float64)(torch.ones(bank.n, 2, 3,
                                                      dtype=torch.float64))
     assert out.shape == (bank.n, 2, 3)
+    # the N-D paths: B8/B9 on scattered (n, 2) points, B10/B11 on a gappy
+    # field, all through their plain versions on the CPU
+    th2 = torch.tensor([0.3, -0.2])
+    for xx in (_scattered2(80), _gappy_field()):
+        nd = tgp.GP.bind(_spec("se*matern32"), xx, np.sin(xx[:, 0]),
+                         device="cpu")
+        s = teng.make_solver("iterative", nd.cov, th2, nd.x, nd.y, 0.1,
+                             opts=nd.spec.solver.opts, op=nd.op)
+        teng.profiled_grad(s)
+        nd.predict(xx[:5] + 0.01, theta=th2)
     assert sum(_cuda.LAUNCHES.values()) == 0
     assert not _cuda.KERNELS.fns       # nothing was built either
 
@@ -147,6 +157,41 @@ def test_wrappers_reject_devices_they_cannot_serve():
     with pytest.raises(ValueError, match="one spectrum per member"):
         tsf.fused_bank_matvec(geom, lams[:1], 0.0, V)
     assert tsf.fused_bank_matvec(geom, lams, 0.0, V).shape == V.shape
+    # B8 / B9
+    p2 = torch.ones(2, 8, dtype=torch.float64)
+    x2 = torch.zeros(4, 2, dtype=torch.float64)
+    pd = torch.zeros(3, 2, 8, dtype=torch.float64)
+    kinds = ("se", "matern32")
+    with pytest.raises(ValueError):
+        tkm.tile_matvec_nd(kinds, p2, x2, x2, meta)
+    with pytest.raises(ValueError):
+        tkm.tile_stacked_tangent_matvec_nd(kinds, p2.to("meta"), pd.to(
+            "meta"), x2.to("meta"), x2.to("meta"), meta)
+    with pytest.raises(ValueError, match="one device"):
+        tkm.tile_matvec_nd(kinds, p2.to("meta"), x2, x2, v)
+    assert tkm.tile_matvec_nd(kinds, p2, x2, x2, v).shape == (4, 1)
+    assert tkm.tile_stacked_tangent_matvec_nd(kinds, p2, pd, x2, x2,
+                                              v).shape == (3, 4, 1)
+    # B10 / B11
+    g2 = topers.select_operator("se*matern32", torch.tensor(_gappy_field()),
+                                0.1, 1e-8).fused_geom
+    l1 = torch.zeros(g2.Ls[0], dtype=torch.float64)
+    l2 = torch.zeros(g2.Ls[1], dtype=torch.float64)
+    v2 = torch.zeros((g2.n, 2), dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tsf.fused_gram_matvec_nd(g2, (l1.to("meta"), l2.to("meta")), 0.0,
+                                 v2.to("meta"))
+    with pytest.raises(ValueError, match="one device"):
+        tsf.fused_gram_matvec_nd(g2, (l1.to("meta"), l2), 0.0, v2)
+    pairs = (l1[None].expand(2, -1).contiguous(),
+             l2[None].expand(2, -1).contiguous())
+    with pytest.raises(ValueError):
+        tsf.fused_tangent_matvecs_nd(
+            g2, tuple(p.to("meta") for p in pairs), v2.to("meta"))
+    with pytest.raises(ValueError, match="spectra must be"):
+        tsf.fused_tangent_matvecs_nd(g2, (pairs[0], pairs[1][:1]), v2)
+    assert tsf.fused_gram_matvec_nd(g2, (l1, l2), 0.0, v2).shape == v2.shape
+    assert tsf.fused_tangent_matvecs_nd(g2, pairs, v2).shape == (2, g2.n, 2)
 
 
 def _near(n_full=3000):
@@ -154,10 +199,26 @@ def _near(n_full=3000):
     return np.delete(np.arange(float(n_full)), np.arange(5, n_full, 7))
 
 
+def _field(shape=(14, 10)):
+    """A full product grid on spacings (0.5, 0.25), row-major."""
+    axes = [h * np.arange(m) for m, h in zip(shape, (0.5, 0.25))]
+    return np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 2)
+
+
+def _gappy_field(shape=(14, 10)):
+    """The field with every 6th point dropped."""
+    x = _field(shape)
+    return np.delete(x, np.arange(3, x.shape[0], 6), axis=0)
+
+
+def _scattered2(n=120, seed=0):
+    return np.random.default_rng(seed).uniform(0.0, 5.0, (n, 2))
+
+
 @pytest.mark.parametrize("what", [
     "backend_dense", "backend_stochastic", "auto_small_n", "auto_huge_n",
     "operator_lowrank", "precond_pivchol", "precond_rank",
-    "composite_kind", "dense_only_kind", "nested_evidence", "bank_pivchol",
+    "dense_only_kind", "nested_evidence", "bank_pivchol",
     "bank_precond_rank"])
 def test_unported_branches_raise_not_implemented(what):
     x, y = _irregular()
@@ -179,7 +240,6 @@ def test_unported_branches_raise_not_implemented(what):
         "precond_rank": lambda: tgp.GP.bind(
             _spec(precond_rank=8), x, y, device="cpu").log_likelihood(
                 [5.0, 2.0, 0.0]),
-        "composite_kind": lambda: resolve("se*matern32"),
         "dense_only_kind": lambda: resolve("periodic"),
         "nested_evidence": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
         .log_evidence(method="nested"),
@@ -273,6 +333,58 @@ def test_batched_bank_binds_and_runs(grid, monkeypatch):
     assert len(trained) == 1 and trained[0].bank.fused == (grid == "near")
     assert [r.name for r in reports] == ["k1", "se"]
     assert all(np.isfinite(r.log_p_max) for r in reports)
+
+
+@pytest.mark.parametrize("what", ["kron", "product_ski_fused",
+                                  "scattered_tiles"])
+def test_ported_nd_branches_bind(what):
+    """The branches the N-D slice ported: a composite kind on a full
+    product grid binds the Kronecker operator, on a gappy field the fused
+    product-SKI operator (B10/B11), on scattered (n, 2) points the product
+    tiles (B8/B9)."""
+    spec = _spec("se*matern32", precond="circulant")
+    if what == "kron":
+        x = _field()
+        gp = tgp.GP.bind(spec, x, np.sin(x[:, 0]), device="cpu")
+        assert isinstance(gp.op, topers.KroneckerOperator)
+        assert gp.op.shape == (14, 10)
+    elif what == "product_ski_fused":
+        x = _gappy_field()
+        gp = tgp.GP.bind(spec, x, np.sin(x[:, 0]), device="cpu")
+        assert isinstance(gp.op, topers.ProductSKIOperator)
+        assert gp.op.fused and teng.select_fused(gp.op)
+        assert gp.op._sel_cells is not None
+        pc = tit.make_preconditioner(gp.op, torch.tensor([0.3, -0.2]),
+                                     "circulant")
+        assert pc.choice == "circulant" and pc.slq is not None
+    else:
+        x = _scattered2()
+        gp = tgp.GP.bind(spec, x, np.sin(x[:, 0]), device="cpu")
+        assert isinstance(gp.op, topers.PallasTileOperator)
+        assert gp.op.kinds == ("se", "matern32")
+    assert gp.box.lo.shape == (2,)
+    assert torch.isfinite(gp.log_likelihood([0.3, -0.2]))
+
+
+def test_nd_binding_errors_match_the_jax_package():
+    """A plain kind on (n, 2) points and a composite kind on a series
+    raise the JAX package's ValueErrors; so does batch='on' on scattered
+    (n, 2) points."""
+    x = _field()
+    with pytest.raises(ValueError, match=r"plain kind 'se' cannot cover"):
+        tgp.GP.bind(_spec("se"), x, np.sin(x[:, 0]), device="cpu")
+    with pytest.raises(ValueError, match=r"needs \(n, 2\) inputs"):
+        tgp.GP.bind(_spec("se*se"), np.arange(50.0), np.zeros(50),
+                    device="cpu")
+    xs = _scattered2()
+    with pytest.raises(ValueError, match="batch='on'"):
+        tgp.compare([_spec("se*se"), _spec("se*matern32")], xs,
+                    np.sin(xs[:, 0]), batch="on", device="cpu")
+    assert not batchable([_spec("se*se"), _spec("se*matern32")], xs)
+    assert batchable([_spec("se*se"), _spec("se*matern32")], _gappy_field())
+    with pytest.raises(NotImplementedError, match="the rest of slice S2"):
+        tgp.GP.bind(_spec("se*se"), x, np.sin(x[:, 0]),
+                    device="cpu").op.diag(torch.zeros(2))
 
 
 def test_irregular_data_binds_the_tile_operator():
