@@ -1,4 +1,4 @@
-"""The iterative (matrix-free) GP solver engine.
+"""The matrix-free GP solver engine.
 
 Counterpart of ``repro/core/engine.py``: :class:`IterativeSolver` serves
 every quantity of the paper's workflow — solves, ln det K, sigma_f_hat^2
@@ -7,9 +7,10 @@ SLQ (plain or preconditioned) and Hutchinson probes over the bound linear
 operator.  On the tile operator every matrix access is a B1 or B2 launch;
 on a fused SKI operator (a gappy record) a B5 or B6 launch; on a fused
 product-SKI operator (a gappy 2-D field) a B10 or B11 launch; on
-scattered (n, d) data a B8 or B9 launch; K is never stored.
-Backends and options that the port does not run yet raise and name the
-slice that brings them.
+scattered (n, d) data a B8 or B9 launch; K is never stored.  The
+stochastic backend (:mod:`.stochastic`) serves the same quantities from
+mini-batch row slabs (B12, B13).  Backends and options that the port
+does not run yet raise and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from .. import _pending
 from .. import random as rnd
 from . import iterative as it
+from . import stochastic as _stochastic
 from ..kernels import operators as kopers
 from ..kernels import ops as kops
 from .covariances import Covariance
@@ -32,11 +34,12 @@ BACKENDS = ("dense", "iterative", "stochastic")
 
 
 class SolverOpts(NamedTuple):
-    """Iterative-backend knobs; the same fields and defaults as the JAX
+    """Matrix-free backend knobs; the same fields and defaults as the JAX
     package.  Ported: operator None/"pallas"/"toeplitz"/"ski", precond
-    None/"auto"/"circulant" with precond_rank 0, and fused.  The
-    stochastic fields are carried for parity and not read, and so is
-    fused_tile_mb (the JAX package's VMEM budget has no counterpart)."""
+    None/"auto"/"circulant" with precond_rank 0, fused, and the stochastic
+    backend's batch_size, n_epochs, nystrom_rank, mem_budget_mb (the
+    card's memory) and momentum.  fused_tile_mb is checked and carried for
+    parity, not read (the JAX package's VMEM budget has no counterpart)."""
 
     n_probes: int = 16
     lanczos_k: int = 64
@@ -169,6 +172,13 @@ def select_precond(op, opts: SolverOpts = SolverOpts()) -> Optional[str]:
     return it.resolve_precond(opts.precond, op, opts.precond_rank)
 
 
+def select_stochastic(op, opts: SolverOpts = SolverOpts()):
+    """Resolved stochastic batch/rank/epoch plan for one bound operator
+    (:func:`repro_torch.core.stochastic.resolve_stochastic`)."""
+    return _stochastic.resolve_stochastic(opts, int(op.n),
+                                          float(getattr(op, "noise2", 0.0)))
+
+
 def select_fused(op) -> bool:
     """Resolved fused-kernel decision for one bound operator (operators
     resolve ``fused`` at construction; this reads it back)."""
@@ -200,17 +210,18 @@ def resolve_kind(cov: Covariance) -> str:
 def make_solver(backend: str, cov: Covariance, theta, x, y, sigma_n: float,
                 key=None, jitter: Optional[float] = None,
                 opts: SolverOpts = SolverOpts(), op=None, probes=None):
-    """The solver for one evaluation point (iterative backend only)."""
-    if backend == "iterative":
+    """The solver for one evaluation point (the iterative and stochastic
+    backends; ``probes`` as each solver's own argument)."""
+    if backend in ("iterative", "stochastic"):
         if key is None:
             key = rnd.key(0)
-        return IterativeSolver(resolve_kind(cov), theta, x, y, sigma_n, key,
-                               1e-8 if jitter is None else jitter, opts,
-                               op=op, probes=probes)
+        cls = IterativeSolver if backend == "iterative" else \
+            _stochastic.StochasticSolver
+        return cls(resolve_kind(cov), theta, x, y, sigma_n, key,
+                   1e-8 if jitter is None else jitter, opts, op=op,
+                   probes=probes)
     if backend == "dense":
         raise _pending.pending("backend 'dense'", _pending.DENSE)
-    if backend == "stochastic":
-        raise _pending.pending("backend 'stochastic'", _pending.STOCHASTIC)
     raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
 
 

@@ -2,7 +2,8 @@
 preconditioned forms.
 
 Counterpart of ``repro/core/iterative.py`` (the pivoted-Cholesky
-preconditioner excepted): every iteration is one multi-vector gram matvec
+preconditioner excepted; its factor machinery is here, for the stochastic
+backend): every iteration is one multi-vector gram matvec
 through the bound operator (on the tile operator one B1 launch, on a fused
 SKI operator one B5 launch).  The loops are Python loops; where the JAX
 package's ``while_loop`` tests a device value, the port reads it back once
@@ -208,6 +209,78 @@ def slq_logdet_precond(matvec: Callable, slq_pre, key, n_probes: int = 16,
         matvec, lambda r: slq_pre.apply_inv(r).to(dtype), z, k)
     vals = slq_quadrature(alphas, betas, unorm2)
     return slq_pre.logdet.to(dtype) + torch.mean(vals)
+
+
+# ---------------------------------------------------------------------------
+# Pivoted-Cholesky factor (the stochastic backend's Nystrom deflation; the
+# pivchol CG preconditioner built on it is not ported yet)
+# ---------------------------------------------------------------------------
+
+def pivoted_cholesky(diag, matcol_fn: Callable, rank: int,
+                     eps: float = 1e-30):
+    """Greedy rank-``rank`` pivoted Cholesky of the noise-free kernel
+    matrix: L (n, rank) with k(x, x) ~= L L^T.
+
+    diag: (n,) diagonal of k(x, x); matcol_fn: i -> column k(x, x_i),
+    called with a (1,) index tensor.  Each step pivots on the largest
+    residual diagonal (``torch.argmax`` takes the first maximum, as
+    ``jnp.argmax`` does) and evaluates one column; the pivot stays on the
+    device (no host read).  Unfilled columns of L are zero, so the running
+    correction ``L @ L[i]`` needs no masking.
+    """
+    n = diag.shape[0]
+    L = diag.new_zeros((n, rank))
+    d = diag
+    for k in range(rank):
+        i = torch.argmax(d).reshape(1)
+        dii = torch.clamp(d.index_select(0, i), min=eps)
+        c = matcol_fn(i)
+        lk = (c - L @ L.index_select(0, i)[0]) / torch.sqrt(dii)
+        L[:, k] = lk
+        d = torch.clamp(d - lk * lk, min=0.0)
+    return L
+
+
+def _woodbury_factor(L, noise2: float):
+    """Lm = chol(noise2 I_r + L^T L), the small factor of the Woodbury
+    identity for P = L L^T + noise2 I."""
+    rank = L.shape[1]
+    return torch.linalg.cholesky(
+        noise2 * torch.eye(rank, dtype=L.dtype, device=L.device) + L.T @ L)
+
+
+def _woodbury_apply(L, Lm, noise2: float) -> Callable:
+    """r -> P^{-1} r = (r - L (noise2 I_r + L^T L)^{-1} L^T r) / noise2;
+    r (n,) or (n, k)."""
+
+    def apply(r):
+        squeeze = r.ndim == 1
+        if squeeze:
+            r = r[:, None]
+        u = torch.cholesky_solve(L.T @ r, Lm)
+        out = (r - L @ u) / noise2
+        return out[:, 0] if squeeze else out
+
+    return apply
+
+
+_DEFAULT_PIVCHOL_RANK = 32
+# the JAX package's noise-to-signal rank ladder (snr = 1 / noise2 of a
+# unit-scale kernel): rank 64 from snr 1e3, 128 from 1e5
+_PIVCHOL_RANK_LADDER = ((1e5, 128), (1e3, 64))
+
+
+def resolve_rank(noise2: float, n: int) -> int:
+    """The low-rank factor size for one fit (host side): the rank ladder
+    of the pivoted-Cholesky preconditioner and the stochastic backend's
+    deflation, clamped to [1, n]."""
+    snr = 1.0 / max(float(noise2), 1e-300)
+    rank = _DEFAULT_PIVCHOL_RANK
+    for thresh, r in _PIVCHOL_RANK_LADDER:
+        if snr >= thresh:
+            rank = r
+            break
+    return max(1, min(rank, int(n)))
 
 
 # ---------------------------------------------------------------------------

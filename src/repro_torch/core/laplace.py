@@ -1,6 +1,7 @@
 """Laplace hyperevidence and Bayes factors (paper Sec. 2a, eq. 2.13).
 
-Counterpart of the profiled, iterative path of ``repro/core/laplace.py``:
+Counterpart of the profiled engine path of ``repro/core/laplace.py``
+(the iterative and stochastic backends):
 ln Z = ln P_marg(theta_hat) - ln V + (m/2) ln 2 pi - (1/2) ln det H, with
 sigma_f marginalised analytically (eqs. 2.18-2.19) and H the central
 difference Hessian of the engine gradient.  The multimodal variant sums
@@ -66,10 +67,9 @@ def _evidence_profiled_impl(cov: Covariance, theta_hat, x, y, sigma_n: float,
                             solver_opts: eng.SolverOpts = eng.SolverOpts(),
                             op=None) -> LaplaceResult:
     """Laplace evidence with sigma_f marginalised analytically."""
-    if backend != "iterative":
+    if backend == "dense":
         raise _pending.pending(f"evidence on backend {backend!r}",
-                               _pending.DENSE if backend == "dense"
-                               else _pending.STOCHASTIC)
+                               _pending.DENSE)
     n = int(y.shape[0])
     theta_hat = torch.as_tensor(theta_hat, dtype=x.dtype, device=x.device)
     solver = eng.make_solver(backend, cov, theta_hat, x, y, sigma_n, key=key,

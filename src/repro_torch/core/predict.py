@@ -1,6 +1,7 @@
 """GP prediction, paper eq. (2.1), sigma_f profiled.
 
-Counterpart of the iterative path of ``repro/core/predict.py``: mean =
+Counterpart of the iterative and stochastic paths of
+``repro/core/predict.py`` (one body, the backend's solver): mean =
 k*^T K^-1 y, var = sigma_f_hat^2 (1 - k*^T K^-1 k*).  With the exact cross
 covariance the mean is one B1 launch with n1 = n*, b = 1, and the variance
 builds the (n, n*) cross block with B4 and solves it with one batched CG.
@@ -52,25 +53,26 @@ def _predict_impl(cov: Covariance, theta, x, y, xstar, sigma_n: float,
     if cross not in ("exact", "interp"):
         raise ValueError(f"unknown cross mode {cross!r}; choose "
                          f"'exact' or 'interp'")
-    if backend != "iterative":
+    if backend == "dense":
         raise _pending.pending(f"prediction on backend {backend!r}",
-                               _pending.DENSE if backend == "dense"
-                               else _pending.STOCHASTIC)
+                               _pending.DENSE)
     return _predict_iterative(cov, theta, x, y, xstar, sigma_n,
                               include_noise, jitter, solver_opts,
                               compute_var, key=key, op=op,
-                              var_chunk=var_chunk, cross=cross)
+                              var_chunk=var_chunk, cross=cross,
+                              backend=backend)
 
 
 def _predict_iterative(cov: Covariance, theta, x, y, xstar, sigma_n: float,
                        include_noise: bool, jitter: float,
                        opts: eng.SolverOpts, compute_var: bool, key=None,
                        op=None, var_chunk: int = 256,
-                       cross: str = "exact") -> Posterior:
+                       cross: str = "exact",
+                       backend: str = "iterative") -> Posterior:
     kind = eng.resolve_kind(cov)
     theta = torch.as_tensor(theta, dtype=x.dtype, device=x.device)
     xstar = torch.as_tensor(xstar, dtype=x.dtype, device=x.device)
-    solver = eng.make_solver("iterative", cov, theta, x, y, sigma_n,
+    solver = eng.make_solver(backend, cov, theta, x, y, sigma_n,
                              key=key, jitter=jitter, opts=opts, op=op)
     s2 = solver.sigma2_hat()                     # the K^-1 y solve
     star = None

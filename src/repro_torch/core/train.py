@@ -1,6 +1,7 @@
 """Multi-start NCG maximisation of the profiled hyperlikelihood (Sec. 3a).
 
-Counterpart of the iterative branch of ``repro/core/train.py``:
+Counterpart of the engine branch of ``repro/core/train.py`` (the
+iterative and stochastic backends):
 Polak-Ribiere+ nonlinear CG with Armijo backtracking, in the unconstrained
 coordinate z with theta = box-sigmoid(z).  The JAX package runs the loops
 as ``while_loop``s and the restarts under ``lax.map`` (one after another);
@@ -50,11 +51,10 @@ def make_objective(cov: Covariance, x, y, sigma_n: float, box: FlatBox,
                    jitter: float = 1e-10, backend: str = "iterative",
                    key=None, solver_opts: eng.SolverOpts = eng.SolverOpts(),
                    op=None):
-    """(value, grad) and value-only callables of z (iterative backend)."""
-    if backend != "iterative":
+    """(value, grad) and value-only callables of z (engine backends)."""
+    if backend == "dense":
         raise _pending.pending(f"training on backend {backend!r}",
-                               _pending.DENSE if backend == "dense"
-                               else _pending.STOCHASTIC)
+                               _pending.DENSE)
     lo, hi = box.lo, box.hi
     widths = box.widths
     vag_t = eng.value_and_grad_fn(backend, cov, x, y, sigma_n, key=key,
@@ -128,17 +128,16 @@ def _train_impl(cov: Covariance, x, y, sigma_n: float, key,
                 backend: str = "iterative",
                 solver_opts: eng.SolverOpts = eng.SolverOpts(),
                 op=None) -> TrainResult:
-    """Paper Sec. 3a: multi-start NCG on ln P_max (iterative backend).
+    """Paper Sec. 3a: multi-start NCG on ln P_max (engine backends).
 
     ``scan_points > 0`` seeds the restarts with the best points of a
     uniform scan of the box (each scan evaluation counted); otherwise the
     starts are uniform over the central 90% of the box in z.  ``z0s``
     pins the start points.
     """
-    if backend != "iterative":
+    if backend == "dense":
         raise _pending.pending(f"training on backend {backend!r}",
-                               _pending.DENSE if backend == "dense"
-                               else _pending.STOCHASTIC)
+                               _pending.DENSE)
     if box is None:
         box = flat_box(cov, x)
     scan_evals = 0

@@ -1,21 +1,25 @@
 // Row-stripe sweep of the separable product kernels on (n, d) coordinates,
-// shared by B8 (tile_matvec_nd.cu) and B9 (tile_tangent_nd.cu):
+// shared by B8 (tile_matvec_nd.cu), B9 (tile_tangent_nd.cu) and the
+// stochastic solver's product row slab B13 (B8's sweep on a pre-gathered
+// batch of rows):
 // out[i] = K_i(x1, x2) @ V for i < m, where K_0 = prod_a k_a (value mode)
 // or, in tangent mode, K_i = sum_a (sum_s pdots[i, a, s] dk_a/dp[s])
 // prod_{b != a} k_b: the product rule applied by hand.
 //
-// Replaces the Pallas kernels _matvec_kernel_nd and
-// _matvec_stacked_tangent_kernel_nd of repro/kernels/kernel_matvec.py.
+// Replaces the Pallas kernels _matvec_kernel_nd,
+// _matvec_stacked_tangent_kernel_nd and the row-slab matvec_rows_pallas_nd
+// of repro/kernels/kernel_matvec.py.
 // The tangent body there linearises the product tile with jax.linearize;
 // CUDA has no such thing, so each entry evaluates every factor's value and
 // closed-form gradient once (tile_grad in tile_fns.cuh) and each direction
 // is the product rule over those.
 //
 // Layout: x1 (n1, d) and x2 (n2, d) row-major, params (d, 8), pdots
-// (m, d, 8).  The sweep is the one of tile_sweep.cuh (one block per stripe
-// of SWEEP_ROWS output rows, all of x2 in a loop, the tile evaluated once
-// into shared memory and contracted with V in chunks; the sum order is
-// fixed, no atomics), with two changes:
+// (m, d, 8).  The sweep is the one of tile_sweep.cuh (a grid of stripes of
+// SWEEP_ROWS output rows x column segments, each block's segment of x2 in
+// a loop, the tile evaluated once into shared memory and contracted with V
+// in chunks, the segments' partial stripes summed in a fixed order; no
+// atomics), with two changes:
 //   * the family of each axis is dispatched at run time inside the tile
 //     evaluation (a switch on a uniform value, no divergence), so one
 //     kernel takes every tuple of families: templating on the tuple would
@@ -95,7 +99,8 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
                      const T* __restrict__ x1, int n1,
                      const T* __restrict__ x2, int n2,
                      const T* __restrict__ v, int ldv, int b,
-                     T* __restrict__ out, int ldo) {
+                     int seg_cols, T* __restrict__ out, int ldo,
+                     size_t seg_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ks_stride = SWEEP_COLS + 1;
   const int vw = b < SWEEP_VCOLS ? b : SWEEP_VCOLS;
@@ -109,6 +114,8 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * SWEEP_ROWS;
+  const int c_begin = blockIdx.y * seg_cols;
+  const int c_end = min(n2, c_begin + seg_cols);
 
   for (int e = tid; e < d * N_PARAM_SLOTS; e += SWEEP_THREADS)
     ps[e] = params[e];
@@ -118,17 +125,17 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
   const int n_acc = m * SWEEP_ROWS * b;
   for (int e = tid; e < n_acc; e += SWEEP_THREADS) acc[e] = T(0);
 
-  for (int c0 = 0; c0 < n2; c0 += SWEEP_COLS) {
+  for (int c0 = c_begin; c0 < c_end; c0 += SWEEP_COLS) {
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < SWEEP_COLS * d; e += SWEEP_THREADS)
-      xs[e] = (c0 + e / d < n2) ? x2[(size_t)c0 * d + e] : T(0);
+      xs[e] = (c0 + e / d < c_end) ? x2[(size_t)c0 * d + e] : T(0);
     __syncthreads();
 
     // evaluate the product tile (or its m tangents) once
     for (int e = tid; e < SWEEP_ROWS * SWEEP_COLS; e += SWEEP_THREADS) {
       const int r = e / SWEEP_COLS;
       const int c = e % SWEEP_COLS;
-      const bool ok = (row0 + r < n1) && (c0 + c < n2);
+      const bool ok = (row0 + r < n1) && (c0 + c < c_end);
       const T* xr = x1 + (size_t)(ok ? row0 + r : 0) * d;
       const T* xc = xs + c * d;
       if (!TANGENT) {
@@ -175,18 +182,19 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
     }
     __syncthreads();
 
-    contract_tile<T>(ks, vs, acc, v, ldv, b, m, c0, n2);
+    contract_tile<T>(ks, vs, acc, v, ldv, b, m, c0, c_end);
   }
-  write_stripe<T>(acc, out, ldo, b, m, row0, n1);
+  write_stripe<T>(acc, out + blockIdx.y * seg_stride, ldo, b, m, row0, n1);
 }
 
 template <typename T, bool TANGENT>
 static int launch_sweep_nd(int d, int code, const T* params, const T* pdots,
                            int m, const T* x1, int n1, const T* x2, int n2,
-                           const T* v, int ldv, int b, T* out, int ldo,
-                           cudaStream_t stream) {
+                           const T* v, int ldv, int b, int seg_cols, int segs,
+                           T* part, T* out, int ldo, cudaStream_t stream) {
   if (d < 1 || d > MAX_AXES || n1 <= 0 || b <= 0 || m <= 0 ||
-      m > (TANGENT ? MAX_DIRS_ND : 1) || b > MAX_COLS)
+      m > (TANGENT ? MAX_DIRS_ND : 1) || b > MAX_COLS ||
+      !split_ok(n2, seg_cols, segs, part))
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < d; ++a)
     if (axis_kind(code, a) > MATERN52) return (int)cudaErrorInvalidValue;
@@ -196,10 +204,14 @@ static int launch_sweep_nd(int d, int code, const T* params, const T* pdots,
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int grid = (n1 + SWEEP_ROWS - 1) / SWEEP_ROWS;
-  fn<<<grid, SWEEP_THREADS, smem, stream>>>(d, code, params, pdots, m, x1,
-                                            n1, x2, n2, v, ldv, b, out, ldo);
-  return (int)cudaGetLastError();
+  const dim3 grid((n1 + SWEEP_ROWS - 1) / SWEEP_ROWS, segs);
+  return launch_split<T>(
+      [&](T* dst, int ldd, size_t seg_stride) {
+        fn<<<grid, SWEEP_THREADS, smem, stream>>>(
+            d, code, params, pdots, m, x1, n1, x2, n2, v, ldv, b, seg_cols,
+            dst, ldd, seg_stride);
+      },
+      m, n1, b, segs, part, out, ldo, stream);
 }
 
 }  // namespace tile

@@ -14,24 +14,28 @@ extern "C" int tile_tangent_max_cols(int m, int elem_bytes) {
   return tile::sweep_max_cols(m, (size_t)elem_bytes);
 }
 
+// part: the (segs, m, n1, b) scratch, unused (may be null) when segs == 1.
 extern "C" int tile_tangent_f64(int kind, const void* params,
                                 const void* pdots, int m, const void* x1,
                                 int n1, const void* x2, int n2, const void* v,
-                                int ldv, int b, void* out, int ldo,
+                                int ldv, int b, int seg_cols, int segs,
+                                void* part, void* out, int ldo,
                                 void* stream) {
   return tile::launch_sweep<double, true>(
       kind, (const double*)params, (const double*)pdots, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
-      (double*)out, ldo, (cudaStream_t)stream);
+      seg_cols, segs, (double*)part, (double*)out, ldo,
+      (cudaStream_t)stream);
 }
 
 extern "C" int tile_tangent_f32(int kind, const void* params,
                                 const void* pdots, int m, const void* x1,
                                 int n1, const void* x2, int n2, const void* v,
-                                int ldv, int b, void* out, int ldo,
+                                int ldv, int b, int seg_cols, int segs,
+                                void* part, void* out, int ldo,
                                 void* stream) {
   return tile::launch_sweep<float, true>(
       kind, (const float*)params, (const float*)pdots, m, (const float*)x1,
-      n1, (const float*)x2, n2, (const float*)v, ldv, b, (float*)out, ldo,
-      (cudaStream_t)stream);
+      n1, (const float*)x2, n2, (const float*)v, ldv, b, seg_cols, segs,
+      (float*)part, (float*)out, ldo, (cudaStream_t)stream);
 }

@@ -12,24 +12,28 @@
 // tile_matvec_nd.cu.
 #include "tile_sweep_nd.cuh"
 
+// part: the (segs, m, n1, b) scratch, unused (may be null) when segs == 1.
 extern "C" int tile_tangent_nd_f64(int d, int kinds_code, const void* params,
                                    const void* pdots, int m, const void* x1,
                                    int n1, const void* x2, int n2,
-                                   const void* v, int ldv, int b, void* out,
-                                   int ldo, void* stream) {
+                                   const void* v, int ldv, int b,
+                                   int seg_cols, int segs, void* part,
+                                   void* out, int ldo, void* stream) {
   return tile::launch_sweep_nd<double, true>(
       d, kinds_code, (const double*)params, (const double*)pdots, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
-      (double*)out, ldo, (cudaStream_t)stream);
+      seg_cols, segs, (double*)part, (double*)out, ldo,
+      (cudaStream_t)stream);
 }
 
 extern "C" int tile_tangent_nd_f32(int d, int kinds_code, const void* params,
                                    const void* pdots, int m, const void* x1,
                                    int n1, const void* x2, int n2,
-                                   const void* v, int ldv, int b, void* out,
-                                   int ldo, void* stream) {
+                                   const void* v, int ldv, int b,
+                                   int seg_cols, int segs, void* part,
+                                   void* out, int ldo, void* stream) {
   return tile::launch_sweep_nd<float, true>(
       d, kinds_code, (const float*)params, (const float*)pdots, m,
       (const float*)x1, n1, (const float*)x2, n2, (const float*)v, ldv, b,
-      (float*)out, ldo, (cudaStream_t)stream);
+      seg_cols, segs, (float*)part, (float*)out, ldo, (cudaStream_t)stream);
 }

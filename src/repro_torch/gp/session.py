@@ -15,8 +15,9 @@ are immutable: ``fit`` returns a new, fitted session.
 the tile operator (irregular x), the Toeplitz operator (an exact grid),
 the SKI operator (a near grid: a gappy record), and for a composite
 "a*b" kind on (n, d) x the Kronecker operator (a full product grid) and
-the product-SKI operator (a gappy field); everything else raises and
-names the slice that brings it.
+the product-SKI operator (a gappy field); and the stochastic backend on
+the tile operator (structure-free data at large n).  Everything else
+raises and names the slice that brings it.
 """
 
 from __future__ import annotations
@@ -31,15 +32,12 @@ from .._device import as_tensor, resolve_device
 from ..core import engine as eng
 from ..core import laplace as _laplace
 from ..core import predict as _predict
+from ..core import stochastic as _stochastic
 from ..core import train as _train
 from ..core.covariances import Covariance
 from ..core.reparam import FlatBox, flat_box
 from ..kernels import operators as kopers
 from .spec import GPSpec
-
-# n at which an "auto" session on structure-free data escalates to the
-# stochastic backend in the JAX package
-STOCHASTIC_AUTO_MIN_N = 65536
 
 
 def _as_key(key):
@@ -70,8 +68,12 @@ class GP:
 
         The backend resolves as in the JAX package: "auto" gives dense up
         to ``dense_cutoff`` points and iterative above, and structure-free
-        data ("pallas" operator) at n >= STOCHASTIC_AUTO_MIN_N escalates to
-        stochastic.  Only the iterative backend is ported.
+        data (the "pallas" operator) at n >=
+        ``core.stochastic.STOCHASTIC_AUTO_MIN_N`` escalates to stochastic.
+        An explicit "stochastic" binds the tile operator unless the spec
+        names another (the iteration applies exact kernel rows; the
+        operator supplies its column oracles and tangents).  The dense
+        backend is not ported.
         """
         dev = resolve_device(device)
         x = as_tensor(x, dev, dtype)
@@ -82,9 +84,6 @@ class GP:
         if backend == "dense":
             raise _pending.pending(f"backend 'dense' (n = {n})",
                                    _pending.DENSE)
-        if backend == "stochastic":
-            raise _pending.pending("backend 'stochastic'",
-                                   _pending.STOCHASTIC)
         jitter = spec.noise.jitter_for(backend)
         if spec.box is not None:
             box = FlatBox(as_tensor(spec.box.lo, dev, dtype),
@@ -92,16 +91,19 @@ class GP:
         else:
             box = flat_box(cov, x)
         kind = eng.resolve_kind(cov)
+        operator = spec.solver.opts.operator
+        if backend == "stochastic" and operator is None:
+            operator = "pallas"
         op = kopers.select_operator(kind, x, float(spec.noise.sigma_n),
-                                    float(jitter),
-                                    operator=spec.solver.opts.operator,
+                                    float(jitter), operator=operator,
                                     fused=spec.solver.opts.fused)
-        if (spec.solver.backend == "auto" and op.name == "pallas"
-                and n >= STOCHASTIC_AUTO_MIN_N):
-            raise _pending.pending(
-                f"backend 'auto' at n = {n} >= {STOCHASTIC_AUTO_MIN_N} on "
-                f"structure-free data (the stochastic backend)",
-                _pending.STOCHASTIC)
+        # the three-way auto dispatch: no grid structure at large n leaves
+        # the O(n^2)-per-CG-iteration exact path for the O(b n)-per-step
+        # stochastic one
+        if (backend == "iterative" and spec.solver.backend == "auto"
+                and op.name == "pallas"
+                and n >= _stochastic.STOCHASTIC_AUTO_MIN_N):
+            backend = "stochastic"
         return cls(spec, x, y, box, backend, jitter, kind, op)
 
     @property

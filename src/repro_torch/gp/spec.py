@@ -96,6 +96,15 @@ class GPSpec:
         if fu not in FUSED_CHOICES:
             raise ValueError(
                 f"unknown fused mode {fu!r}; choose from {FUSED_CHOICES}")
+        mu = self.solver.opts.momentum
+        if not 0.0 <= float(mu) < 1.0:
+            raise ValueError(
+                f"momentum must be in [0, 1), got {mu!r} (0 disables the "
+                "stochastic backend's heavy-ball velocity)")
+        if int(self.solver.opts.fused_tile_mb) < 0:
+            raise ValueError(
+                "fused_tile_mb must be >= 0 MB (0 = the FUSED_TILE_MB "
+                f"default), got {self.solver.opts.fused_tile_mb!r}")
         if self.box is not None and not isinstance(self.box, FlatBox):
             object.__setattr__(self, "box", FlatBox(*self.box))
 

@@ -70,17 +70,22 @@ _DOUBLE = ctypes.c_double
 _SIGNATURES = {
     "tile_matvec_max_cols": [_INT],
     "tile_tangent_max_cols": [_INT, _INT],
+    # the sweeps (B1/B12, B2, B8/B13, B9): (lead..., x1, n1, x2, n2, v,
+    # ldv, b, seg_cols, segs, part, out, ldo, stream), lead = (kind,
+    # params[, pdots, m]) in 1-D and (d, kinds_code, params[, pdots, m])
     "tile_matvec_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
-                        _INT, _VOID, _INT, _VOID],
+                        _INT, _INT, _INT, _VOID, _VOID, _INT, _VOID],
     "tile_tangent_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
-                         _VOID, _INT, _INT, _VOID, _INT, _VOID],
+                         _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
+                         _VOID],
     "tile_matrix_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _VOID],
     "tile_nd_max_cols": [_INT, _INT, _INT],
     "tile_matvec_nd_f64": [_INT, _INT, _VOID, _VOID, _INT, _VOID, _INT,
-                           _VOID, _INT, _INT, _VOID, _INT, _VOID],
+                           _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
+                           _VOID],
     "tile_tangent_nd_f64": [_INT, _INT, _VOID, _VOID, _INT, _VOID, _INT,
-                            _VOID, _INT, _VOID, _INT, _INT, _VOID, _INT,
-                            _VOID],
+                            _VOID, _INT, _VOID, _INT, _INT, _INT, _INT,
+                            _VOID, _VOID, _INT, _VOID],
 }
 # the three SKI kernels share one signature: (n, m, L, d0, s, occ, wcell,
 # cell, lams, m_dirs, noise2, v, B, c, out, scratch0, scratch1, stream)

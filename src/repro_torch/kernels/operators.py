@@ -79,7 +79,18 @@ def bound_gram_matvec(op, theta, dtype):
 
 
 def _column(kind: str, theta, dt):
-    """k(dt) for a separation vector dt, one closed-form evaluation."""
+    """k(dt) for a separation vector dt, one closed-form evaluation.
+
+    Composite kinds ("a*b") take (n, d) separations and return the product
+    of the per-axis factors on dt[..., a]."""
+    kinds = kops.split_kind(kind)
+    if len(kinds) > 1:
+        out = None
+        for a, (k, tb) in enumerate(zip(kinds, kops.theta_blocks(kind,
+                                                                 theta))):
+            ka = tile(k, dt[..., a], kops.natural_params(k, tb).to(dt.dtype))
+            out = ka if out is None else out * ka
+        return out
     p = kops.natural_params(kind, theta).to(dt.dtype)
     return tile(kind, dt, p)
 
@@ -106,11 +117,28 @@ def _mean_spacing_column(kind: str, theta, x, n: int):
                                                      device=x.device))
 
 
+class _StationaryColumnAccess:
+    """The diag and column oracles of an operator whose exact matrix is
+    the stationary kernel on its own ``self.x`` (tiles, Toeplitz): one
+    closed-form evaluation per call.  ``i`` may be a 0-d index tensor on
+    the card; it is never read back to the host."""
+
+    def diag(self, theta):
+        """Noise-free diagonal k(x, x) (unit-scale kernels: all ones)."""
+        return _column(self.kind, theta, torch.zeros_like(self.x))
+
+    def matcol(self, theta, i):
+        """Column k(x, x_i), O(n)."""
+        idx = torch.as_tensor(i, device=self.x.device).reshape(1)
+        return _column(self.kind, theta,
+                       self.x - self.x.index_select(0, idx))
+
+
 # ---------------------------------------------------------------------------
 # General path: tiles
 # ---------------------------------------------------------------------------
 
-class PallasTileOperator:
+class PallasTileOperator(_StationaryColumnAccess):
     """The general path: K generated tile by tile, never stored; any 1-D x."""
 
     name = "pallas"
@@ -142,21 +170,6 @@ class PallasTileOperator:
 
     def tangent_matvecs(self, theta, V):
         return kops.matvec_tangents(self.kind, theta, self.x, self.x, V)
-
-    def diag(self, theta):
-        """Noise-free diagonal k(x, x) (unit-scale kernels: all ones)."""
-        self._plain_only("diag")
-        return _column(self.kind, theta, torch.zeros_like(self.x))
-
-    def matcol(self, theta, i: int):
-        """Column k(x, x_i)."""
-        self._plain_only("matcol")
-        return _column(self.kind, theta, self.x - self.x[i])
-
-    def _plain_only(self, what: str) -> None:
-        if len(self.kinds) > 1:
-            raise _pending.pending(f"{what} of a composite kind (pivoted "
-                                   f"Cholesky)", _pending.PIVCHOL)
 
     def circulant_precond(self, theta, floor: float = 1e-12):
         """Circulant apply from the mean-spacing stand-in column: a model
@@ -441,7 +454,7 @@ def masked_circulant_slq_precond_bank(lams, occ,
     return SLQPrecond(apply_inv, sample, logdet)
 
 
-class ToeplitzOperator:
+class ToeplitzOperator(_StationaryColumnAccess):
     """O(n log n) gram/tangent matvecs for stationary kernels on a grid.
 
     x must be strictly ascending and uniformly spaced; the whole matrix is
@@ -1113,17 +1126,10 @@ class ProductSKIOperator:
                                "Cholesky)", _pending.PIVCHOL)
 
     def circulant_precond(self, theta, floor: float = 1e-12):
-        """Grid-space Kronecker-Strang sandwich W (x_a Strang_a + noise2
-        I)^{-1} W^T, the d-D analogue of the SKI grid-space circulant.
-
-        The noise is this operator's: the JAX package builds this apply
-        from its noise-free inner Kronecker operator, so its spectrum has
-        no noise2 and floors near 1e-12 max|lambda|, and its CG stalls
-        (ROADMAP.md, queue C); the port adds the noise, as the 1-D SKI
-        preconditioner does."""
-        pc = masked_circulant_slq_precond(
-            _strang_outer(self._kron.first_columns(theta), self.noise2,
-                          floor), None)
+        """Grid-space Kronecker-Strang sandwich W (x_a Strang_a)^{-1} W^T,
+        the d-D analogue of the SKI grid-space circulant, built from the
+        noise-free inner Kronecker operator as in the JAX package."""
+        pc = self._kron.slq_precond(theta, floor)
 
         def apply(r):
             squeeze = r.ndim == 1

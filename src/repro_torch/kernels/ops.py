@@ -10,7 +10,7 @@ their ragged edges instead, so nothing is padded here.
 Composite kinds ("se*matern32") are separable products over (n, d)
 coordinates, one registered factor per axis; theta is the concatenation
 of the per-axis blocks.  Their matvecs are B8, their stacked tangents B9,
-their dense blocks B4 once per factor.
+their row slabs B13, their dense blocks B4 once per factor.
 """
 
 from __future__ import annotations
@@ -157,6 +157,27 @@ def matvec(kind: str, theta, x1, x2, v):
         p = natural_params(kind, theta).to(v.dtype)
         out = kernel_matvec.tile_matvec(kind, p, x1.to(v.dtype),
                                         x2.to(v.dtype), v)
+    return out[:, 0] if squeeze else out
+
+
+def matvec_rows(kind: str, theta, rows_x, x2, v):
+    """K(rows_x, x2) @ v for a pre-gathered mini-batch of rows (no
+    noise): the stochastic solver's hot loop, b n2 kernel entries per
+    call through the row-slab kernel (B12; composite kinds B13 on (b, d)
+    rows).  rows_x (b,) or (b, d); v (n2,) or (n2, k)."""
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[:, None]
+    kinds = split_kind(kind)
+    if len(kinds) > 1:
+        check_nd_coords(kind, kinds, rows_x, x2)
+        p = natural_params_nd(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_matvec_rows_nd(kinds, p, rows_x.to(v.dtype),
+                                                x2.to(v.dtype), v)
+    else:
+        p = natural_params(kind, theta).to(v.dtype)
+        out = kernel_matvec.tile_matvec_rows(kind, p, rows_x.to(v.dtype),
+                                             x2.to(v.dtype), v)
     return out[:, 0] if squeeze else out
 
 

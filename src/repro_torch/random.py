@@ -2,12 +2,12 @@
 
 A :class:`Key` records a seed and the path of splits and fold-ins that led
 to it, exactly where the JAX package splits or folds its ``jax.random``
-keys.  Only :func:`rademacher`, :func:`uniform` and :func:`normal` draw:
-each seeds a ``torch.Generator`` from the key's path.  The draws differ
-from JAX's bits for the same seed; a test that needs the JAX package's
-probes, scan points and start points replaces these functions by ones
-that replay the key's path with ``jax.random`` (the key path is the whole
-interface).
+keys.  Only :func:`rademacher`, :func:`uniform`, :func:`normal` and
+:func:`permutation` draw: each seeds a ``torch.Generator`` from the key's
+path.  The draws differ from JAX's bits for the same seed; a test that
+needs the JAX package's probes, scan points, start points and epoch
+orders replaces these functions by ones that replay the key's path with
+``jax.random`` (the key path is the whole interface).
 """
 
 from __future__ import annotations
@@ -66,3 +66,9 @@ def normal(k: Key, shape, *, device, dtype=torch.float64):
     colour these)."""
     g = torch.randn(tuple(shape), generator=_generator(k), dtype=dtype)
     return g.to(device)
+
+
+def permutation(k: Key, n: int, *, device):
+    """A random permutation of range(n) (int64), as
+    ``jax.random.permutation(k, n)`` (the stochastic backend's epochs)."""
+    return torch.randperm(int(n), generator=_generator(k)).to(device)

@@ -1,5 +1,5 @@
-"""The CUDA kernels B1, B2, B4, B5, B6, B7, B8, B9, B10 and B11 against
-their plain PyTorch versions.
+"""The CUDA kernels B1, B2, B4, B5, B6, B7, B8, B9, B10, B11, B12 and B13
+against their plain PyTorch versions.
 
 These tests need a card and skip without one.  They import neither JAX nor
 the JAX package, so they also run where JAX is not installed:
@@ -285,3 +285,98 @@ def test_cuda_ski_2d_wrappers_refuse_what_the_kernels_cannot_take(
         tsf.fused_gram_matvec_nd(geom, (lams[0].cpu(), lams[1]), 0.0, v)
     with pytest.raises(TypeError):
         tsf.fused_gram_matvec_nd(geom, lams, 0.0, v.to(torch.float32))
+
+
+ROW_SLAB_THETAS = {"se": [np.log(1.3)], "k2": THETAS[("k2", "mid")],
+                   "se*matern32": ND_THETAS["se*matern32"],
+                   "k2*se": ND_THETAS["k2*se"]}
+
+
+def _row_slab_inputs(kind, b, n2, k, seed):
+    """A batch of b distinct rows of n2 scattered points (1-D over a
+    year of hours for k2, [0, 80] for se; (n2, 2) points in [0, 8]^2 for
+    composite kinds) and a (n2, k) right-hand side."""
+    rng = np.random.default_rng(seed)
+    d = kind.count("*") + 1
+    if d > 1:
+        x = rng.uniform(0.0, 8.0, (n2, d))
+    else:
+        x = np.sort(rng.uniform(0.0, 8760.0 if kind == "k2" else 80.0, n2))
+    rows = rng.permutation(n2)[:b]
+    return x, rows, rng.standard_normal((n2, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kind", sorted(ROW_SLAB_THETAS))
+@pytest.mark.parametrize("b,n2,k", [(37, 3001, 9), (8, 65537, 1),
+                                    (1000, 4097, 70), (2048, 20000, 256),
+                                    (40, 50, 3)])
+def test_cuda_row_slab_kernels_match_plain(cuda_device, kind, dtype, b, n2,
+                                           k):
+    """B12 (1-D kinds) and B13 (composite kinds) against their plain
+    versions on ragged shapes: one column segment (n2 = 50) up to a
+    thousand (b = 8, n2 = 65537), k above one launch's column limit."""
+    if dtype == torch.float32 and kind.startswith("k2"):
+        pytest.skip("float32 cannot resolve the periodic factor's phase "
+                    "at 1e-5 over a year of hours")
+    x, rows, v = _row_slab_inputs(kind, b, n2, k, b + n2)
+    theta = torch.tensor(ROW_SLAB_THETAS[kind], dtype=torch.float64)
+    xt = torch.tensor(x, device=cuda_device, dtype=dtype)
+    vt = torch.tensor(v, device=cuda_device, dtype=dtype)
+    xb = xt[torch.tensor(rows, device=cuda_device)]
+    kinds = tops.split_kind(kind)
+    nd = len(kinds) > 1
+    _cuda.reset_launches()
+    if nd:
+        p = tops.natural_params_nd(kind, theta).to(cuda_device, dtype)
+        got = tkm.tile_matvec_rows_nd(kinds, p, xb, xt, vt)
+        want = tkm.tile_matvec_nd_plain(kinds, p, xb, xt, vt)
+    else:
+        p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+        got = tkm.tile_matvec_rows(kind, p, xb, xt, vt)
+        want = tkm.tile_matvec_plain(kind, p, xb, xt, vt)
+    torch.cuda.synchronize()
+    name = "tile_rows_nd" if nd else "tile_rows"
+    limit = (_cuda.KERNELS.get("tile_nd_max_cols")(1, len(kinds),
+                                                   vt.element_size())
+             if nd else _cuda.KERNELS.get("tile_matvec_max_cols")(
+                 vt.element_size()))
+    assert _cuda.LAUNCHES[name] == -(-k // limit)
+    # a row slab runs B1's (B8's) sweep but counts under its own name
+    assert _cuda.LAUNCHES["tile_matvec_nd" if nd else "tile_matvec"] == 0
+    assert got.shape == (b, k)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _relerr(got, want) < tol
+    assert _relerr(tops.matvec_rows(kind, theta.to(cuda_device), xb, xt,
+                                    vt), want) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_row_slab_wrappers_refuse_what_the_kernels_cannot_take(
+        cuda_device):
+    x, rows, v = _row_slab_inputs("se", 40, 500, 3, 1)
+    xt = torch.tensor(x, device=cuda_device)
+    vt = torch.tensor(v, device=cuda_device)
+    xb = xt[:40]
+    p = tops.natural_params("se", torch.zeros(1, dtype=torch.float64)).to(
+        cuda_device)
+    with pytest.raises(ValueError, match="one device"):
+        tkm.tile_matvec_rows("se", p, xb.cpu(), xt, vt)
+    with pytest.raises(TypeError):
+        tkm.tile_matvec_rows("se", p, xb, xt, vt.to(torch.float32))
+    with pytest.raises(TypeError, match="float64 or float32"):
+        tkm.tile_matvec_rows("se", p.half(), xb.half(), xt.half(),
+                             vt.half())
+    with pytest.raises(ValueError, match="v must be"):
+        tkm.tile_matvec_rows("se", p, xb, xt, vt[:-1])
+    x2, _, v2 = _row_slab_inputs("se*matern32", 40, 500, 3, 2)
+    x2t = torch.tensor(x2, device=cuda_device)
+    p2 = tops.natural_params_nd("se*matern32",
+                                torch.zeros(2, dtype=torch.float64)).to(
+        cuda_device)
+    with pytest.raises(ValueError, match=r"x1 must be \(n, 2\)"):
+        tkm.tile_matvec_rows_nd(("se", "matern32"), p2, x2t[:40, :1], x2t,
+                                torch.tensor(v2, device=cuda_device))
+    empty = tkm.tile_matvec_rows("se", p, xb, xt[:0], vt[:0])
+    assert empty.shape == (40, 3) and not bool(empty.any())

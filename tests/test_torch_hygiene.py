@@ -123,6 +123,16 @@ def test_cpu_tensors_never_launch_a_kernel():
                              opts=nd.spec.solver.opts, op=nd.op)
         teng.profiled_grad(s)
         nd.predict(xx[:5] + 0.01, theta=th2)
+    # the stochastic backend: B12 and B13 take their plain versions
+    for kind, xx, th in (("k1", x, theta), ("se*matern32", _scattered2(80),
+                                             th2)):
+        st = tgp.GP.bind(_spec(kind, backend="stochastic", batch_size=16),
+                         xx, np.sin(np.reshape(xx, (len(xx), -1))[:, 0]),
+                         device="cpu")
+        s = teng.make_solver("stochastic", st.cov, th, st.x, st.y, 0.1,
+                             opts=st.spec.solver.opts, op=st.op)
+        teng.profiled_grad(s)
+        st.predict(np.asarray(xx)[:5], theta=th)
     assert sum(_cuda.LAUNCHES.values()) == 0
     assert not _cuda.KERNELS.fns       # nothing was built either
 
@@ -216,9 +226,8 @@ def _scattered2(n=120, seed=0):
 
 
 @pytest.mark.parametrize("what", [
-    "backend_dense", "backend_stochastic", "auto_small_n", "auto_huge_n",
-    "operator_lowrank", "precond_pivchol", "precond_rank",
-    "dense_only_kind", "nested_evidence", "bank_pivchol",
+    "backend_dense", "auto_small_n", "operator_lowrank", "precond_pivchol",
+    "precond_rank", "dense_only_kind", "nested_evidence", "bank_pivchol",
     "bank_precond_rank"])
 def test_unported_branches_raise_not_implemented(what):
     x, y = _irregular()
@@ -226,12 +235,8 @@ def test_unported_branches_raise_not_implemented(what):
     cases = {
         "backend_dense": lambda: tgp.GP.bind(_spec(backend="dense"), x, y,
                                              device="cpu"),
-        "backend_stochastic": lambda: tgp.GP.bind(
-            _spec(backend="stochastic"), x, y, device="cpu"),
         "auto_small_n": lambda: tgp.GP.bind(_spec(backend="auto"), x, y,
                                             device="cpu"),
-        "auto_huge_n": lambda: tgp.GP.bind(
-            _spec(backend="auto"), *_irregular(65536), device="cpu"),
         "operator_lowrank": lambda: tgp.GP.bind(
             _spec(operator="lowrank"), x, y, device="cpu"),
         "precond_pivchol": lambda: tgp.GP.bind(
@@ -252,8 +257,45 @@ def test_unported_branches_raise_not_implemented(what):
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         cases[what]()
-    if what.startswith("bank_"):
+    if what.startswith("bank_") or what.startswith("precond"):
         assert "the rest of slice S2" in str(err.value)
+
+
+@pytest.mark.parametrize("what", ["backend_stochastic", "auto_huge_n",
+                                  "auto_huge_n_grid", "stochastic_nd"])
+def test_ported_stochastic_branches_bind(what):
+    """The branches the stochastic slice ported: an explicit
+    backend="stochastic" binds the tile operator whatever the data's
+    structure, and "auto" escalates structure-free data at n >= 65536
+    (at that size the test only binds); a grid at that size stays on the
+    iterative backend."""
+    if what == "backend_stochastic":
+        x = np.arange(600.0)                     # an exact grid
+        gp = tgp.GP.bind(_spec(backend="stochastic"), x, np.sin(x / 7.0),
+                         device="cpu")
+        assert gp.log_likelihood([5.0, 2.0, 0.0]).isfinite()
+    elif what == "auto_huge_n":
+        gp = tgp.GP.bind(_spec(backend="auto"), *_irregular(65536),
+                         device="cpu")
+    elif what == "auto_huge_n_grid":
+        x = _near(77000)
+        gp = tgp.GP.bind(_spec(backend="auto"), x, np.sin(x), device="cpu")
+        assert gp.n >= 65536
+        assert (gp.backend, gp.operator_name) == ("iterative", "ski")
+        return
+    else:
+        x = _scattered2(90)
+        gp = tgp.GP.bind(_spec("se*matern32", backend="stochastic",
+                               batch_size=16), x, np.sin(x[:, 0]),
+                         device="cpu")
+        s = teng.make_solver("stochastic", gp.cov, torch.tensor([0.3, -0.2]),
+                             gp.x, gp.y, 0.1, opts=gp.spec.solver.opts,
+                             op=gp.op)
+        assert teng.profiled_grad(s).isfinite().all()
+    assert (gp.backend, gp.operator_name) == ("stochastic", "pallas")
+    assert isinstance(gp.op, topers.PallasTileOperator)
+    plan = teng.select_stochastic(gp.op, gp.spec.solver.opts)
+    assert plan.batch <= gp.n and plan.rank >= 2
 
 
 @pytest.mark.parametrize("what", [
@@ -413,3 +455,20 @@ def test_spec_validation_matches_the_jax_package():
     with pytest.raises(ValueError, match="unknown preconditioner"):
         _spec(precond="jacobi")
     assert tgp.GPSpec("k2", noise=0.05).noise.sigma_n == 0.05
+
+
+@pytest.mark.parametrize("field,value,ok", [
+    ("momentum", -0.1, False), ("momentum", 1.0, False),
+    ("momentum", 0.0, True), ("momentum", 0.9, True),
+    ("fused_tile_mb", -1, False), ("fused_tile_mb", 0, True),
+    ("fused_tile_mb", 8, True)])
+def test_spec_checks_the_stochastic_and_tile_budget_fields(field, value, ok):
+    """momentum in [0, 1) and fused_tile_mb >= 0, with the JAX package's
+    messages."""
+    if ok:
+        assert _spec(**{field: value}).solver.opts._asdict()[field] == value
+        return
+    with pytest.raises(ValueError, match=(
+            r"momentum must be in \[0, 1\)" if field == "momentum"
+            else "fused_tile_mb must be >= 0 MB")):
+        _spec(**{field: value})

@@ -2,11 +2,12 @@
 against the JAX package on the same numpy data.
 
 The random seam: the port draws all its randomness through
-``repro_torch.random.rademacher`` / ``uniform`` / ``normal`` from a key that
-records the JAX key tree.  The fixture below replaces all three by
-functions that replay the key's path with ``jax.random``, so the port sees
-the JAX package's probes (Rademacher, and the N(0, P) probes of
-preconditioned SLQ), scan points and start points everywhere.
+``repro_torch.random.rademacher`` / ``uniform`` / ``normal`` /
+``permutation`` from a key that records the JAX key tree.  The fixture
+below replaces all four by functions that replay the key's path with
+``jax.random``, so the port sees the JAX package's probes (Rademacher, and
+the N(0, P) probes of preconditioned SLQ), scan points, start points and
+the stochastic backend's epoch orders everywhere.
 
 Two kinds of check:
   * stages on a JAX fit carried across (``repro_torch.gp.convert``): the
@@ -85,7 +86,12 @@ def jax_random(monkeypatch):
                                          dtype=jnp.float64))
         return torch.tensor(g, device=device, dtype=dtype)
 
+    def permutation(k, n, *, device):
+        p = np.asarray(jax.random.permutation(_jax_key(k), int(n)))
+        return torch.tensor(p, device=device, dtype=torch.int64)
+
     monkeypatch.setattr(rnd, "rademacher", rademacher)
+    monkeypatch.setattr(rnd, "permutation", permutation)
     monkeypatch.setattr(rnd, "uniform", uniform)
     monkeypatch.setattr(rnd, "normal", normal)
 
