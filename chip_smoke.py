@@ -2,16 +2,17 @@
 
     python3 chip_smoke.py [--seed S] [--budget committed|planned] [--json PATH]
                           [--six-month SIGMA_N,STARTS,ITERS,SCAN[,MONTHS]]
-                          [--nd] [--stochastic]
+                          [--nd] [--stochastic] [--distributed]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU.  It builds
 the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
 started together) and then:
 
-  1. kernel phase: each kernel of the five paths (B1 tile_matvec, B2
+  1. kernel phase: each kernel of the six paths (B1 tile_matvec, B2
      tile_tangent, B4 tile_matrix; B5 ski_gram, B6 ski_tangent; B7
      ski_bank; B8 tile_matvec_nd, B9 tile_tangent_nd, B10 ski_gram_2d,
-     B11 ski_tangent_2d; B12 tile_rows, B13 tile_rows_nd) at the shapes
+     B11 ski_tangent_2d; B12 tile_rows, B13 tile_rows_nd; B3 tile_jvp) at
+     the shapes
      its workflow gives it, held
      against its plain PyTorch version on the same inputs (float64, and
      one float32 case of B5, B6, B7, B10 and B11), and timed (CUDA
@@ -21,7 +22,10 @@ started together) and then:
      card's own crossover lies), and B7 at B = 1 is held against B5 on
      the same inputs; B12 and B13 at b = 2048 rows of n2 = 65536 with
      k = 1, 9 and 256 columns, a ragged b = 1000 of n2 = 65537, b = 8,
-     and one float32 case;
+     and one float32 case; B3 at B2's shape (n = 8760, k2, b = 9, beside
+     B2's time over its m = 5 directions), at the distributed gradient's
+     b = 1, 8 and 16, on a ragged 1000 x 1001 block, for all six kinds at
+     n = 1000, b = 8, and one float32 case;
   2. irregular phase: the paper's workflow through the front door on one
      year of hourly-scale irregular sampling (n = 8760, the tile
      operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
@@ -63,11 +67,11 @@ started together) and then:
          bank, the unfused Kronecker cycle on torch.fft) -> predict at
          512 off-grid points with variance and cross="interp";
        - Kronecker: the same field with no drops (n = 8192): bind -> fit
-         (one start, 15 steps) -> predict (the mean is B8, the cross
+         (one start, ND_SHORT_ITERS steps) -> predict (the mean is B8, the cross
          block B4 per factor);
        - irregular (n, 2): 4096 uniform points in the same box, the
          product tiles (CG on B8, gradients on B9): bind -> fit (one
-         start, 15 steps) -> predict;
+         start, ND_SHORT_ITERS steps) -> predict;
      each stage prints its wall-clock, CG stops and Laplace Hessian
      eigenvalues, and the phase fails unless B10 and B11 ran in the
      first stage and B8 and B9 in the third; after the product-SKI stage
@@ -110,7 +114,34 @@ started together) and then:
      the slope probe (stochastic_slope_probe: the Hutchinson gradient's
      slope along itself against central differences of the value, split
      into the quadratic and the log-det parts), printed, not checked;
-  7. small-input checks: ln P_max and its gradient on the card against
+  7. distributed phase: the row-sharded GP step
+     (core/distributed.distributed_profiled_loglik) on a world-size-1
+     NCCL group (launch/mesh.make_local_group), in three stages, the
+     launch counts and host syncs set to 0 before each and read after:
+       - distributed_tile: the irregular cell's data (n = 8760, k2,
+         sigma_n 0.1) at the reference tests' theta, 16 probes, 64
+         Lanczos steps, CG cut at 600: the tile branch, B1 for K v and
+         B3 for the gradient (2 x 5 launches, B2 none);
+       - distributed_example: examples/large_scale_gp.py's own call (the
+         paper's synthetic k2 draw at t = 1..4096, its theta, 8 probes,
+         48 Lanczos steps, CG cut at 300): the Toeplitz branch; prints
+         its ln P_max as the example does;
+       - distributed_ski: the SKI cell's tide record (n ~ 7063, sigma_n
+         0.01): the SKI branch (its tangents B6), CG to its tolerance
+         (cap DIST_SKI_CG_MAX_ITER) and DIST_SKI_LANCZOS_K Lanczos
+         steps; the same at the default 64 steps (CG cut at 3000) is
+         printed as distributed_ski_k64 and not checked (its SLQ
+         log-det is far off at this noise);
+     each fails unless its result is finite and, against the exact
+     ln P_max and gradient at the same theta from a dense Cholesky on the
+     card (K from B4, dK from the plain tangent blocks), |d ln P / ln P|
+     <= 0.08 and the gradient's cosine >= 0.99 (the JAX package's own
+     bounds; a cut CG is printed); then the card against the CPU (gloo,
+     plain versions) at n = 1024 on all three branches with the same
+     probes, sigma_n 0.5 and CG to its tolerance (<= 1e-8), and one
+     StochasticSolver(group=) solve against group=None at n = 4096
+     (<= 1e-12, equal row-slab launches);
+  8. small-input checks: ln P_max and its gradient on the card against
      the port's CPU path (plain PyTorch) with the same probes, on an
      irregular input, a gappy record (SKI) and its un-dropped grid
      (Toeplitz), a gappy 2-D field (product SKI), its full grid
@@ -139,7 +170,10 @@ B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V; B2
 counts the value and its closed-form gradient over the kind's natural
 slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles with V,
 since the m directions can be applied afterwards to the (NS, n1, b)
-result at a cost independent of n2.  B8 counts the d factor values and
+result at a cost independent of n2.  B3 counts the value and gradient
+(GRAD_OPS) and the cheaper of B2's contraction (2 NS b, the tensor
+cores) and projecting the NS gradients on its one direction first (2 NS,
+outside them) with 2 b for the one tile.  B8 counts the d factor values and
 d - 1 products, and 2 b with V; B12 and B13 count as B1 and B8 on
 their (b, n2) entries (float32 cases: every operation at 67 TFLOP/s),
 and move rows_x, x2, V and the output once; B9 each factor's value and
@@ -180,6 +214,8 @@ length, SEQ_VS_BANK_MONTHS by default): how its budget was chosen.
 ``--nd`` builds the kernels and runs only the kernel cases of B8-B11 and
 check 5.  ``--stochastic`` builds the kernels and runs only the kernel
 cases of B12/B13, check 6 and the stochastic small-input checks.
+``--distributed`` builds the kernels and runs only the cases of B3 and
+check 7.
 
 ``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
@@ -201,6 +237,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
@@ -211,6 +248,7 @@ from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import iterative as it  # noqa: E402
 from repro_torch.core import laplace  # noqa: E402
 from repro_torch.core import predict  # noqa: E402
+from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core import stochastic  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import kernel_matvec as km  # noqa: E402
@@ -221,6 +259,8 @@ from repro_torch.kernels import operators as opers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ski_fused as sf  # noqa: E402
 from repro_torch.kernels.ref import matrix_ref  # noqa: E402
+from repro_torch.kernels.ref import tangent_matrices_ref  # noqa: E402
+from repro_torch.launch.mesh import make_local_group  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
 FP64_PEAK = 34e12          # fp64 outside the tensor cores
@@ -251,7 +291,7 @@ TOL = {"tile_matvec": 1e-12, "tile_tangent": 1e-11, "tile_matrix": 1e-12,
        "ski_gram": 1e-12, "ski_tangent": 1e-12, "ski_bank": 1e-12,
        "tile_matvec_nd": 1e-12, "tile_tangent_nd": 1e-12,
        "ski_gram_2d": 1e-12, "ski_tangent_2d": 1e-12, "tile_rows": 1e-12,
-       "tile_rows_nd": 1e-12}
+       "tile_rows_nd": 1e-12, "tile_jvp": 1e-11}
 TOL_F32 = 1e-5
 SOURCES = {
     "tile_matvec": ("src/repro_torch/csrc/tile_matvec.cu",
@@ -278,6 +318,8 @@ SOURCES = {
                   "src/repro/kernels/kernel_matvec.py:308"),
     "tile_rows_nd": ("src/repro_torch/csrc/tile_matvec_nd.cu",
                      "src/repro/kernels/kernel_matvec.py:342"),
+    "tile_jvp": ("src/repro_torch/csrc/tile_jvp.cu",
+                 "src/repro/kernels/kernel_matvec.py:243"),
 }
 TILE_KERNELS = ("tile_matvec", "tile_tangent", "tile_matrix")
 SKI_KERNELS = ("ski_gram", "ski_tangent", "ski_bank")
@@ -287,6 +329,32 @@ ROWS_KERNELS = ("tile_rows", "tile_rows_nd")
 STOCHASTIC_KERNELS = ROWS_KERNELS + ("tile_matvec", "tile_tangent",
                                      "tile_matvec_nd", "tile_tangent_nd",
                                      "tile_matrix")
+DIST_KERNELS = ("tile_jvp", "tile_matvec", "tile_tangent", "tile_matrix",
+                "ski_gram", "ski_tangent", "tile_rows")
+
+# the distributed cell: the row-sharded GP step at world size 1 (NCCL).
+# distributed_tile runs the irregular cell's data at the reference tests'
+# theta (tests/test_distributed_gp.py) with their probe and Lanczos
+# counts; distributed_example is examples/large_scale_gp.py's own call
+# (the paper's synthetic k2 draw at t = 1..4096: a Toeplitz grid);
+# distributed_ski the SKI cell's record at its sigma_n = 0.01, where this
+# path (no preconditioner) needs 7581 CG iterations to its tolerance and
+# more Lanczos steps than the default 64: at 64 its SLQ log-det came out
+# 14% above the exact one (ln P 22% under; PERF.md), so the checked run
+# takes DIST_SKI_LANCZOS_K steps and a second run at 64, printed as
+# distributed_ski_k64, is not checked
+DIST_THETA = [3.2, 1.5, 0.05, 2.8, -0.1]
+DIST_EXAMPLE_N = 4096
+DIST_EXAMPLE_THETA = [3.4, 1.4, 0.05, 2.9, -0.05]
+K2_TRUE = [3.5, 1.5, 0.0, 3.0, 0.0]      # repro.data.synthetic's k2 point
+DIST_SKI_CG_MAX_ITER = 10000
+DIST_SKI_LANCZOS_K = 256
+# the JAX package's own bounds on the step against the dense answer
+DIST_LP_REL = 0.08
+DIST_GRAD_COS = 0.99
+DIST_SMALL_N = 1024
+DIST_SMALL_SIGMA_N = 0.5      # CG to 1e-10 in ~70 iterations on the CPU side
+DIST_STOCHASTIC_N = 4096
 
 # the stochastic cell: run_stochastic's recipe (examples/large_scale_gp.py)
 # at n = STOCHASTIC_N, the threshold of backend="auto"'s escalation, and
@@ -295,8 +363,10 @@ STOCHASTIC_N = 65536
 STOCHASTIC_N_STAR = 256
 STOCHASTIC_SIGMA_N = 0.1
 # NCG steps of each stochastic fit (one pinned start); 15 steps ended at
-# the same peak on the card (PERF.md): the line search stalls sooner
-STOCHASTIC_ITERS = 8
+# the same peak as 8 on the card (PERF.md): the line search stalls
+# sooner; 4 since the distributed phase needed the time (the whole script
+# took ~1160 s of its 1200 on an H100 80GB HBM3 at 700 W, PERF.md)
+STOCHASTIC_ITERS = 4
 # the fit's one start, as run_stochastic pins it: theta = 0 (every
 # lengthscale 1); from a uniform start in the data-dependent box the
 # (n, 2) fit ran to the edge of the box, where the Laplace Hessian has a
@@ -331,7 +401,8 @@ ND_THETA = {"se*matern32": [math.log(1.5), math.log(0.8)],
 # to its tolerance (ND_SEQ_CG_MAX_ITER: 1537 iterations at the peak);
 # the Kronecker and irregular stages, which exist to put their operators
 # and kernels on the workflow's path, one start of ND_SHORT_ITERS steps
-ND_SHORT_ITERS = 15
+# (15 until the distributed phase needed the time; they compute no ln Z)
+ND_SHORT_ITERS = 5
 ND_SEQ_CG_MAX_ITER = 2000
 
 # the SKI cell: the woods_hole_like recipe on two years of the 2 h cadence
@@ -647,11 +718,76 @@ def kernel_phase(x, xstar, dev, rng, seed):
             plain_ms=time_ms(lambda: kt.tile_matrix_plain(kind, p, x, xstar),
                              3),
             bound_ms=bms, bound_by=by))
+    jvp_kernel_cases(cases, x, dev, rng)
     crossover = ski_kernel_cases(cases, dev, rng, seed)
     nd_kernel_cases(cases, dev, rng, seed)
     rows_kernel_cases(cases, dev, rng, seed)
     check_cases(cases, SOURCES)
     return cases, crossover
+
+
+def jvp_bound(kind, n1, n2, b, dtype):
+    """Roofline bound (ms, what bounds it) of B3: x1, x2, V, the output,
+    params and pdot moved once; per entry the value and gradient
+    (GRAD_OPS) and the cheaper of contracting the NS gradient tiles with
+    V (2 NS b, tensor cores) and projecting on pdot first (2 NS, outside
+    them) with 2 b for the one tile; float32 every operation at 67
+    TFLOP/s."""
+    item = torch.finfo(dtype).bits // 8
+    ns = N_SLOTS.get(kind, 1)
+    entries = n1 * n2
+    n_bytes = item * (n1 + n2 + n2 * b + n1 * b + 16)
+    grad = entries * GRAD_OPS[kind]
+    if dtype == torch.float32:
+        return bound(n_bytes, grad + entries * min(2.0 * ns * b,
+                                                   2.0 * ns + 2.0 * b),
+                     0.0, FP32_PEAK)
+    stacked = (grad, 2.0 * entries * ns * b)
+    projected = (grad + 2.0 * entries * ns, 2.0 * entries * b)
+    best = min((stacked, projected), key=lambda c: c[0] / FP64_PEAK
+               + c[1] / FP64_TC_PEAK)
+    return bound(n_bytes, *best)
+
+
+def jvp_kernel_cases(cases, x, dev, rng):
+    """B3 (one tangent direction, a random one in flat coordinates) at
+    B2's shape (n = 8760, k2, b = 9), beside B2's time over its m
+    directions; at the distributed gradient's b = 1 (alpha), 8 and 16
+    (the probes); on a ragged 1000 x 1001 block; all six kinds at
+    n = 1000, b = 8; one float32 case."""
+    b2 = next(r for r in cases["tile_tangent"] if r["kind"] == "k2")
+    f64, f32 = torch.float64, torch.float32
+    shapes = ([("k2", N, N, b, f64) for b in (9, 1, 8, 16)]
+              + [("k2", 1000, 1001, 9, f64)]
+              + [(k, 1000, 1000, 8, f64) for k in sorted(GRAD_OPS)]
+              + [("k2", N, N, 9, f32)])
+    for kind, n1, n2, b, dtype in shapes:
+        th = torch.tensor(THETA.get(kind, [math.log(50.0)]),
+                          dtype=torch.float64)
+        dth = torch.tensor(rng.standard_normal(th.shape[0]))
+        p = ops.natural_params(kind, th).to(dev, dtype)
+        pdot = (dth @ ops.natural_tangents(kind, th)).to(dev, dtype)
+        x1, x2 = x[:n1].to(dtype), x[:n2].to(dtype)
+        v = torch.tensor(rng.standard_normal((n2, b)), device=dev,
+                         dtype=dtype)
+
+        def kern():
+            return km.tile_jvp(kind, p, pdot, x1, x2, v)
+
+        def plain():
+            return km.tile_jvp_plain(kind, p, pdot, x1, x2, v)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        bms, by = jvp_bound(kind, n1, n2, b, dtype)
+        row = dict(kind=kind, n1=n1, n2=n2, b=b,
+                   dtype=str(dtype).split(".")[-1], max_abs_err=err,
+                   max_rel_err=rel, ms=time_ms(kern, 10),
+                   plain_ms=time_ms(plain, 3), bound_ms=bms, bound_by=by)
+        if (kind, n1, b, dtype) == ("k2", N, 9, f64):
+            row["b2_ms_over_m"] = b2["ms"] / b2["m"]
+        cases["tile_jvp"].append(row)
 
 
 def ski_kernel_cases(cases, dev, rng, seed):
@@ -1135,6 +1271,224 @@ def stochastic_small_input_checks(dev):
     return checks
 
 
+# ---------------------------------------------------------------------------
+# distributed phase
+# ---------------------------------------------------------------------------
+
+def make_synthetic(seed: int, n: int, dev):
+    """repro.data.synthetic's k2 recipe in numpy: x = 1..n, one draw of
+    the k2 GP at K2_TRUE with unit scale, L z with L the Cholesky factor
+    of K + (0.1^2 + 1e-10) I on the card and z from numpy's generator."""
+    x = torch.arange(1, n + 1, dtype=torch.float64, device=dev)
+    K = ops.matrix("k2", torch.tensor(K2_TRUE, device=dev), x, x)
+    K.diagonal().add_(SIGMA_N ** 2 + 1e-10)
+    z = np.random.default_rng(seed + 6000).standard_normal(n)
+    y = torch.linalg.cholesky(K) @ torch.tensor(z, device=dev)
+    return x.cpu().numpy(), y.cpu().numpy()
+
+
+def dense_step(kind, theta, x, y, sigma_n, jitter=1e-8):
+    """The exact ln P_max (eq. 2.16) and gradient (eq. 2.17) at theta from
+    a dense Cholesky on the card: K from B4 (ops.matrix), each dK_i from
+    the plain tangent block, tr(K^-1 dK_i) against the explicit inverse."""
+    n = x.shape[0]
+    th = torch.tensor(theta, dtype=x.dtype, device=x.device)
+    K = ops.matrix(kind, th, x, x)
+    K.diagonal().add_(sigma_n ** 2 + jitter)
+    chol, info = torch.linalg.cholesky_ex(K)
+    if int(info) != 0:
+        raise AssertionError(f"K is not positive definite at {theta} "
+                             f"(cholesky info {int(info)})")
+    del K
+    alpha = torch.cholesky_solve(y[:, None], chol)[:, 0]
+    s2 = float(y @ alpha) / n
+    logdet = 2.0 * float(torch.sum(torch.log(torch.diagonal(chol))))
+    lp = -0.5 * n * (math.log(2.0 * math.pi) + 1.0 + math.log(s2)) \
+        - 0.5 * logdet
+    kinv = torch.cholesky_inverse(chol)
+    p = ops.natural_params(kind, th)
+    pdots = ops.natural_tangents(kind, th)
+    grad = []
+    for i in range(pdots.shape[0]):
+        dK = tangent_matrices_ref(kind, p, pdots[i:i + 1], x, x)[0]
+        grad.append(0.5 * float(alpha @ (dK @ alpha)) / s2
+                    - 0.5 * float(torch.sum(kinv * dK)))
+        del dK
+    return lp, np.asarray(grad), s2, logdet
+
+
+def distributed_stage(name, kind, theta, x_np, y_np, sigma_n, group, key,
+                      want_op, dev, check=True, **kw):
+    """One run of the distributed step on ``dev`` with its launches and
+    host syncs, held against the dense answer at the same theta (with
+    ``check`` False the errors are printed, not limited)."""
+    op_name = opers.select_operator(
+        kind, torch.tensor(x_np, device=dev), 0.0, 0.0).name
+    if op_name != want_op:
+        raise AssertionError(f"{name} takes the {op_name!r} branch, "
+                             f"expected {want_op!r}")
+    _cuda.reset_launches()
+    _sync.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = distributed.distributed_profiled_loglik(kind, theta, x_np, y_np,
+                                                  sigma_n, group, key,
+                                                  device=dev, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    syncs = dict(_sync.COUNT)
+    lp = float(res.log_p_max)
+    g = res.grad.cpu().numpy()
+    t0 = time.perf_counter()
+    lp_ex, g_ex, s2_ex, logdet_ex = dense_step(
+        kind, theta, torch.tensor(x_np, device=dev),
+        torch.tensor(y_np, device=dev), sigma_n)
+    n = len(x_np)
+    s2 = float(res.sigma2_hat)
+    # the step's SLQ log-det, from ln P and sigma2_hat
+    logdet = -2.0 * (lp + 0.5 * n * (math.log(2.0 * math.pi) + 1.0
+                                     + math.log(s2)))
+    dense_s = time.perf_counter() - t0
+    lp_rel = abs(lp - lp_ex) / abs(lp_ex)
+    cos = float(g @ g_ex / (np.linalg.norm(g) * np.linalg.norm(g_ex)))
+    cap = kw.get("cg_max_iter", 600)
+    row = dict(stage=name, phase="distributed", operator=op_name,
+               n=n, kind=kind, theta=list(theta), s=sec,
+               cg_iters=res.cg_iters, cg_max_iter=cap,
+               cg_cut=res.cg_iters >= cap,
+               host_syncs=sum(syncs.values()), host_syncs_by_loop=syncs,
+               launches=launches, log_p_max=lp, log_p_exact=lp_ex,
+               log_p_rel_err=lp_rel, sigma2_hat=s2, sigma2_exact=s2_ex,
+               logdet=logdet, logdet_exact=logdet_ex,
+               grad=g.tolist(), grad_exact=g_ex.tolist(), grad_cos=cos,
+               dense_s=dense_s)
+    emit(row)
+    check_finite((("distributed ln P_max", lp), ("its gradient",
+                                                 float(np.sum(g)))))
+    if check and not (lp_rel <= DIST_LP_REL and cos >= DIST_GRAD_COS):
+        raise AssertionError(f"{name} disagrees with the dense answer: "
+                             f"|d ln P / ln P| = {lp_rel} (limit "
+                             f"{DIST_LP_REL}), gradient cosine {cos} "
+                             f"(limit {DIST_GRAD_COS})")
+    return row
+
+
+def distributed_small_inputs(n=DIST_SMALL_N):
+    """The card-vs-CPU inputs: per branch (x, theta); y and the probes
+    shared."""
+    rng = np.random.default_rng(10)
+    full = 2.0 * np.arange(n + n // 7 + 2)
+    inputs = {"pallas": (np.sort(rng.uniform(0.0, float(n), n)),
+                         DIST_THETA),
+              "toeplitz": (np.arange(1.0, n + 1.0), DIST_THETA),
+              "ski": (np.delete(full, np.arange(3, full.size, 8))[:n],
+                      SKI_THETA["k2"])}
+    y = np.sin(np.arange(n) / 9.0) + SIGMA_N * rng.standard_normal(n)
+    z = rng.choice([-1.0, 1.0], (n, 8))
+    return inputs, y, z
+
+
+def distributed_small_runs(group, device):
+    inputs, y, z = distributed_small_inputs()
+    out = {}
+    for br, (x, theta) in inputs.items():
+        r = distributed.distributed_profiled_loglik(
+            "k2", theta, x, y, DIST_SMALL_SIGMA_N, group, None, n_probes=8,
+            lanczos_k=32, cg_tol=1e-10, cg_max_iter=3000, probes=z,
+            device=device)
+        out[br] = (float(r.log_p_max), r.grad.cpu().numpy(), r.cg_iters)
+    return out
+
+
+def stochastic_group_check(group, seed, dev):
+    """One StochasticSolver solve of [y | probes] with its row slabs on
+    the group (sharded_rows_matvec) against group=None, n = 4096."""
+    x, y, _ = make_stochastic_data(seed, DIST_STOCHASTIC_N)
+    xt = torch.tensor(x, device=dev)
+    yt = torch.tensor(y, device=dev)
+    th = torch.tensor(ROWS_THETA["se"], device=dev)
+    opts = eng.SolverOpts(n_probes=8)
+    got = []
+    for g in (group, None):
+        _cuda.reset_launches()
+        s = stochastic.StochasticSolver("se", th, xt, yt, STOCHASTIC_SIGMA_N,
+                                        rnd.key(seed), opts=opts, group=g)
+        sol = s.solve(torch.cat([yt[:, None], s.z], dim=1))
+        torch.cuda.synchronize()
+        got.append((sol, _cuda.LAUNCHES["tile_rows"]))
+    (sharded, n_sharded), (plain, n_plain) = got
+    err, rel = errors(sharded, plain)
+    row = dict(n=DIST_STOCHASTIC_N, max_abs_err=err, max_rel_err=rel,
+               tile_rows_sharded=n_sharded, tile_rows_plain=n_plain)
+    emit({"stochastic_group_check": row})
+    if not (rel <= 1e-12 and n_sharded == n_plain > 0):
+        raise AssertionError(f"StochasticSolver(group=) disagrees with "
+                             f"group=None: {row}")
+    return row
+
+
+def distributed_phase(seed, dev):
+    """The row-sharded GP step at world size 1 on the card (NCCL), three
+    stages and its checks; see the module docstring."""
+    out = {}
+    group = make_local_group(dev)
+    try:
+        x_np, y_np, _ = make_data(seed, dev)
+        out["tile"] = distributed_stage(
+            "distributed_tile", "k2", DIST_THETA, x_np, y_np, SIGMA_N, group,
+            rnd.key(seed + 6000), "pallas", dev, n_probes=16, lanczos_k=64,
+            cg_max_iter=600)
+        launches = out["tile"]["launches"]
+        if not (launches.get("tile_jvp", 0) == 10
+                and launches.get("tile_tangent", 0) == 0
+                and launches.get("tile_matvec", 0) > 0):
+            raise AssertionError(f"the tile branch's gradient must be 2 x 5 "
+                                 f"B3 launches and no B2: {launches}")
+        x_ex, y_ex = make_synthetic(seed, DIST_EXAMPLE_N, dev)
+        out["example"] = distributed_stage(
+            "distributed_example", "k2", DIST_EXAMPLE_THETA, x_ex, y_ex,
+            SIGMA_N, group, rnd.key(9), "toeplitz", dev, n_probes=8,
+            lanczos_k=48, cg_max_iter=300)
+        print(f"distributed (torch.distributed, "
+              f"{dist.get_backend(group)}) ln P_max @ "
+              f"n={DIST_EXAMPLE_N} = {out['example']['log_p_max']:.1f} "
+              f"({out['example']['s']:.0f}s)", flush=True)
+        xs, ys, _, _ = make_tidal_data(seed)
+        out["ski"] = distributed_stage(
+            "distributed_ski", "k2", SKI_THETA["k2"], xs, ys, TIDAL_SIGMA_N,
+            group, rnd.key(seed + 6001), "ski", dev,
+            cg_max_iter=DIST_SKI_CG_MAX_ITER, lanczos_k=DIST_SKI_LANCZOS_K)
+        out["ski_k64"] = distributed_stage(
+            "distributed_ski_k64", "k2", SKI_THETA["k2"], xs, ys,
+            TIDAL_SIGMA_N, group, rnd.key(seed + 6001), "ski", dev,
+            check=False, cg_max_iter=3000)
+        card = distributed_small_runs(group, dev)
+        out["stochastic_group"] = stochastic_group_check(group, seed, dev)
+    finally:
+        dist.destroy_process_group()
+    group = make_local_group("cpu")
+    try:
+        cpu = distributed_small_runs(group, torch.device("cpu"))
+    finally:
+        dist.destroy_process_group()
+    out["small_inputs"] = {}
+    for br in card:
+        (lp, g, it_card), (lp_cpu, g_cpu, it_cpu) = card[br], cpu[br]
+        row = dict(n=DIST_SMALL_N, operator=br,
+                   log_p_max_rel_err=abs(lp - lp_cpu) / abs(lp_cpu),
+                   grad_rel_err=float(np.max(np.abs(g - g_cpu))
+                                      / np.max(np.abs(g_cpu))),
+                   cg_iters_card=it_card, cg_iters_cpu=it_cpu)
+        out["small_inputs"][br] = row
+        emit({"distributed_small_input_check": row})
+        if not (row["log_p_max_rel_err"] <= 1e-8
+                and row["grad_rel_err"] <= 1e-8):
+            raise AssertionError(f"the distributed step on the card and on "
+                                 f"the CPU disagree ({br}): {row}")
+    return out
+
+
 def check_cases(cases, names):
     for name in names:
         for row in cases[name]:
@@ -1161,7 +1515,8 @@ HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
             "tile_rows": dict(b=2048, n2=STOCHASTIC_N, k=9,
                               dtype="float64"),
             "tile_rows_nd": dict(b=2048, n2=STOCHASTIC_N, k=9,
-                                 dtype="float64")}
+                                 dtype="float64"),
+            "tile_jvp": dict(kind="k2", n1=N, b=9, dtype="float64")}
 
 
 def headline(name, rows):
@@ -1918,6 +2273,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stochastic", action="store_true",
                     help="run only the kernel cases of B12/B13, the "
                          "stochastic phase and its small-input checks")
+    ap.add_argument("--distributed", action="store_true",
+                    help="run only the kernel cases of B3 and the "
+                         "distributed phase with its checks")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1949,6 +2307,29 @@ def main(argv=None) -> int:
             path.write_text(json.dumps(dict(device=smi, cases=cases,
                                             stochastic=st), indent=1))
         return 0
+    if args.distributed:
+        cases = {name: [] for name in SOURCES}
+        x_np, _, _ = make_data(args.seed, dev)
+        rng = np.random.default_rng(args.seed + 1)
+        # B2's k2 case first: B3's headline case stands beside it
+        theta = torch.tensor(THETA["k2"], dtype=torch.float64)
+        p = ops.natural_params("k2", theta).to(dev)
+        pd = ops.natural_tangents("k2", theta).to(dev)
+        x = torch.tensor(x_np, device=dev)
+        v = torch.tensor(rng.standard_normal((N, 9)), device=dev)
+        cases["tile_tangent"].append(dict(
+            kind="k2", m=pd.shape[0], b=9,
+            ms=time_ms(lambda: km.tile_stacked_tangent_matvec(
+                "k2", p, pd, x, x, v), 10)))
+        jvp_kernel_cases(cases, x, dev, rng)
+        check_cases(cases, ("tile_jvp",))
+        dist_out = distributed_phase(args.seed, dev)
+        if args.json:
+            path = pathlib.Path(args.json)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(dict(device=smi, cases=cases,
+                                            distributed=dist_out), indent=1))
+        return 0
     if args.nd:
         cases = {name: [] for name in SOURCES}
         nd_kernel_cases(cases, dev, np.random.default_rng(args.seed + 1),
@@ -1977,13 +2358,15 @@ def main(argv=None) -> int:
     ski = ski_phase(args.seed)
     nd = nd_phase(args.seed)
     st = stochastic_phase(args.seed)
+    dist_out = distributed_phase(args.seed, dev)
     seq_vs_bank = sequential_vs_bank(args.seed)
     small_input_check(dev)
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
                 **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS},
                 **{k: nd["launches"][k] for k in ND_KERNELS[:4]},
-                **{k: st["launches"][k] for k in ROWS_KERNELS}}
+                **{k: st["launches"][k] for k in ROWS_KERNELS},
+                "tile_jvp": dist_out["tile"]["launches"]["tile_jvp"]}
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         h = headline(name, cases[name])
@@ -2006,6 +2389,7 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(dict(
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
             workflow=summary, ski_workflow=ski, nd=nd, stochastic=st,
+            distributed=dist_out,
             sequential_vs_bank=seq_vs_bank, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,8 @@ from __future__ import annotations
 DENSE = "slice S1 (the dense Cholesky path)"
 PIVCHOL = ("the rest of slice S2 (pivoted-Cholesky preconditioner and "
            "low-rank operator)")
-BANK = "the batched-bank slice"
+SERVE = "module A5 (serve/ and checkpoint/)"
+LM = "module A7 (the LM scaffold and its launch/ tools)"
 
 
 def pending(what: str, slice_name: str) -> NotImplementedError:

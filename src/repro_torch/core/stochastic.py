@@ -109,13 +109,19 @@ class StochasticSolver:
     Bound to one (theta, x, y) like the other backends; the deflation
     eigensystem is built once here and shared by every solve, the log-det
     and the gradient traces.  ``probes`` ((n, p)) replaces the Rademacher
-    block drawn from ``key`` (for unit tests).
+    block drawn from ``key`` (for unit tests).  ``group`` (a
+    ``torch.distributed`` process group) splits each row slab's column
+    axis over the group's ranks
+    (:func:`repro_torch.core.distributed.sharded_rows_matvec`: every rank
+    runs the row-slab kernel on its column shard and the (b, k) partials
+    are summed); A and the batch coordinates stay replicated.
     """
 
     backend = "stochastic"
 
     def __init__(self, kind: str, theta, x, y, sigma_n: float, key,
-                 jitter: float = 1e-8, opts=None, op=None, probes=None):
+                 jitter: float = 1e-8, opts=None, op=None, probes=None,
+                 group=None):
         from .engine import SolverOpts
 
         self.kind = kind
@@ -134,6 +140,10 @@ class StochasticSolver:
             kind, x, sigma_n, jitter)
         self.noise2 = float(self.op.noise2)
         self.plan = resolve_stochastic(self.opts, self.n, self.noise2)
+        self._sharded_rows = None
+        if group is not None:
+            from .distributed import sharded_rows_matvec
+            self._sharded_rows = sharded_rows_matvec(kind, group)
 
         # the deflation eigensystem, once per theta
         diag = self.op.diag(theta)
@@ -175,6 +185,8 @@ class StochasticSolver:
     # ---- the mini-batch iteration -------------------------------------
 
     def _rows_mv(self, xb, A):
+        if self._sharded_rows is not None:
+            return self._sharded_rows(self.theta, xb, self.x, A)
         return kops.matvec_rows(self.kind, self.theta, xb, self.x, A)
 
     def _grad(self, A, RHS, rows):

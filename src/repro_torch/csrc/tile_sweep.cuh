@@ -1,14 +1,17 @@
 // Row-stripe sweep shared by the covariance matvec (B1), the stacked
-// tangent matvec (B2) and the stochastic solver's row slab (B12):
-// out[i] = K_i(x1, x2) @ V for i < m, where K_0 = K (value mode) or
-// K_i = sum_s pdots[i, s] dK/dp[s] (tangent mode).  B12 is the value sweep
-// on a short, wide slab: x1 a pre-gathered batch of b rows, x2 all n2
-// points.
+// tangent matvec (B2), the one-direction tangent matvec (B3) and the
+// stochastic solver's row slab (B12): out[i] = K_i(x1, x2) @ V for i < m,
+// where K_0 = K (value mode) or K_i = sum_s pdots[i, s] dK/dp[s] (tangent
+// mode).  The tangent mode's direction bound DIRS is a template
+// parameter: B2 takes MAX_DIRS (m <= 5 at run time), B3 takes 1, so its
+// projection is one register dot per entry and its m a constant.  B12 is
+// the value sweep on a short, wide slab: x1 a pre-gathered batch of b
+// rows, x2 all n2 points.
 //
 // Replaces the Pallas kernels _matvec_kernel,
-// _matvec_stacked_tangent_kernel and the row-slab matvec_rows_pallas of
-// repro/kernels/kernel_matvec.py.  There the grid's sequential column axis
-// revisits one output block.  Here the grid is row stripes x column
+// _matvec_stacked_tangent_kernel, _matvec_tangent_kernel and the row-slab
+// matvec_rows_pallas of repro/kernels/kernel_matvec.py.  There the grid's
+// sequential column axis revisits one output block.  Here the grid is row stripes x column
 // segments: each block owns a stripe of SWEEP_ROWS output rows and sweeps
 // its segment of x2 in a loop.  One segment per stripe (no two blocks
 // write the same output) when the stripes alone fill the card; a short
@@ -163,14 +166,16 @@ inline int launch_split(Launch launch, int m, int n1, int b, int segs,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KIND, bool TANGENT>
+template <typename T, int KIND, bool TANGENT, int DIRS>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
-                  int m, const T* __restrict__ x1, int n1,
+                  int m_arg, const T* __restrict__ x1, int n1,
                   const T* __restrict__ x2, int n2, const T* __restrict__ v,
                   int ldv, int b, int seg_cols, T* __restrict__ out,
                   int ldo, size_t seg_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  // one direction is a compile-time m (B3); otherwise m <= DIRS
+  const int m = DIRS == 1 ? 1 : m_arg;
   constexpr int NS = kind_slots<KIND>();
   const int ks_stride = SWEEP_COLS + 1;
   const int vw = b < SWEEP_VCOLS ? b : SWEEP_VCOLS;
@@ -188,10 +193,10 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
   T p[N_PARAM_SLOTS];
 #pragma unroll
   for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
-  T pd[MAX_DIRS][MAX_SLOTS];
+  T pd[DIRS][MAX_SLOTS];
   if (TANGENT) {
 #pragma unroll
-    for (int i = 0; i < MAX_DIRS; ++i)
+    for (int i = 0; i < DIRS; ++i)
 #pragma unroll
       for (int s = 0; s < MAX_SLOTS; ++s)
         pd[i][s] = (i < m && s < NS) ? pdots[i * N_PARAM_SLOTS + s] : T(0);
@@ -219,7 +224,7 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
         for (int s = 0; s < MAX_SLOTS; ++s) g[s] = T(0);
         if (ok) tile_grad<T, KIND>(dt, p, g);
 #pragma unroll
-        for (int i = 0; i < MAX_DIRS; ++i) {
+        for (int i = 0; i < DIRS; ++i) {
           if (i < m) {
             T kt = T(0);
 #pragma unroll
@@ -236,14 +241,14 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
   write_stripe<T>(acc, out + blockIdx.y * seg_stride, ldo, b, m, row0, n1);
 }
 
-template <typename T, int KIND, bool TANGENT>
+template <typename T, int KIND, bool TANGENT, int DIRS>
 static int launch_sweep_kind(const T* params, const T* pdots, int m,
                              const T* x1, int n1, const T* x2, int n2,
                              const T* v, int ldv, int b, int seg_cols,
                              int segs, T* part, T* out, int ldo,
                              cudaStream_t stream) {
   const size_t smem = sweep_smem_bytes(m, b, sizeof(T));
-  auto fn = tile_sweep_kernel<T, KIND, TANGENT>;
+  auto fn = tile_sweep_kernel<T, KIND, TANGENT, DIRS>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -260,22 +265,27 @@ static int launch_sweep_kind(const T* params, const T* pdots, int m,
 #define SWEEP_ARGS params, pdots, m, x1, n1, x2, n2, v, ldv, b, seg_cols, \
     segs, part, out, ldo, stream
 
-template <typename T, bool TANGENT>
+// DIRS: the most tangent directions the kernel takes (B2 MAX_DIRS, B3 1;
+// value mode ignores it).
+template <typename T, bool TANGENT, int DIRS = MAX_DIRS>
 static int launch_sweep(int kind, const T* params, const T* pdots, int m,
                         const T* x1, int n1, const T* x2, int n2, const T* v,
                         int ldv, int b, int seg_cols, int segs, T* part,
                         T* out, int ldo, cudaStream_t stream) {
-  if (n1 <= 0 || b <= 0 || m <= 0 || m > MAX_DIRS || b > MAX_COLS ||
+  if (n1 <= 0 || b <= 0 || m <= 0 || m > DIRS || b > MAX_COLS ||
       !split_ok(n2, seg_cols, segs, part) ||
       sweep_smem_bytes(m, b, sizeof(T)) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   switch (kind) {
-    case K1: return launch_sweep_kind<T, K1, TANGENT>(SWEEP_ARGS);
-    case K2: return launch_sweep_kind<T, K2, TANGENT>(SWEEP_ARGS);
-    case SE: return launch_sweep_kind<T, SE, TANGENT>(SWEEP_ARGS);
-    case MATERN12: return launch_sweep_kind<T, MATERN12, TANGENT>(SWEEP_ARGS);
-    case MATERN32: return launch_sweep_kind<T, MATERN32, TANGENT>(SWEEP_ARGS);
-    case MATERN52: return launch_sweep_kind<T, MATERN52, TANGENT>(SWEEP_ARGS);
+    case K1: return launch_sweep_kind<T, K1, TANGENT, DIRS>(SWEEP_ARGS);
+    case K2: return launch_sweep_kind<T, K2, TANGENT, DIRS>(SWEEP_ARGS);
+    case SE: return launch_sweep_kind<T, SE, TANGENT, DIRS>(SWEEP_ARGS);
+    case MATERN12:
+      return launch_sweep_kind<T, MATERN12, TANGENT, DIRS>(SWEEP_ARGS);
+    case MATERN32:
+      return launch_sweep_kind<T, MATERN32, TANGENT, DIRS>(SWEEP_ARGS);
+    case MATERN52:
+      return launch_sweep_kind<T, MATERN52, TANGENT, DIRS>(SWEEP_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -106,6 +106,12 @@ class GP:
             backend = "stochastic"
         return cls(spec, x, y, box, backend, jitter, kind, op)
 
+    def rebind(self, x, y, op="auto") -> "GP":
+        """This session's decisions on updated data (the streaming-serve
+        refit path of the JAX package): not ported yet."""
+        raise _pending.pending("GP.rebind (the streaming-serve refit)",
+                               _pending.SERVE)
+
     @property
     def cov(self) -> Covariance:
         return self.spec.cov
@@ -235,3 +241,9 @@ class GP:
             backend=self.backend, key=_as_key(key),
             solver_opts=self.spec.solver.opts, compute_var=compute_var,
             op=self.op, var_chunk=var_chunk, cross=cross)
+
+    def sample(self, key, xstar, n_draws: int = 1, theta=None):
+        """Joint posterior draws at xstar, dense in the JAX package
+        whatever the backend: not ported yet."""
+        raise _pending.pending("GP.sample (joint posterior draws)",
+                               _pending.DENSE)

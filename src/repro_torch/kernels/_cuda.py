@@ -26,8 +26,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_matrix.cu",
-           "ski_gram.cu", "ski_tangent.cu", "ski_bank.cu",
+SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_jvp.cu",
+           "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu", "ski_bank.cu",
            "tile_matvec_nd.cu", "tile_tangent_nd.cu", "ski_gram_2d.cu",
            "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "tile_sweep_nd.cuh",
@@ -70,14 +70,19 @@ _DOUBLE = ctypes.c_double
 _SIGNATURES = {
     "tile_matvec_max_cols": [_INT],
     "tile_tangent_max_cols": [_INT, _INT],
-    # the sweeps (B1/B12, B2, B8/B13, B9): (lead..., x1, n1, x2, n2, v,
-    # ldv, b, seg_cols, segs, part, out, ldo, stream), lead = (kind,
-    # params[, pdots, m]) in 1-D and (d, kinds_code, params[, pdots, m])
+    "tile_jvp_max_cols": [_INT],
+    # the sweeps (B1/B12, B2, B3, B8/B13, B9): (lead..., x1, n1, x2, n2,
+    # v, ldv, b, seg_cols, segs, part, out, ldo, stream), lead = (kind,
+    # params[, pdots, m]) in 1-D (B3: pdot with m = 1) and (d, kinds_code,
+    # params[, pdots, m])
     "tile_matvec_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
                         _INT, _INT, _INT, _VOID, _VOID, _INT, _VOID],
     "tile_tangent_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
                          _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
                          _VOID],
+    "tile_jvp_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _INT,
+                     _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
+                     _VOID],
     "tile_matrix_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _VOID],
     "tile_nd_max_cols": [_INT, _INT, _INT],
     "tile_matvec_nd_f64": [_INT, _INT, _VOID, _VOID, _INT, _VOID, _INT,

@@ -1,13 +1,15 @@
 """Matrix-free covariance matvecs: B1 (K @ V), B2 (stacked tangents),
-their separable-product forms on (n, d) coordinates, B8 and B9, and the
-row slabs of the stochastic solver, B12 and B13.
+B3 (the tangent of one direction), their separable-product forms on (n, d)
+coordinates, B8 and B9, and the row slabs of the stochastic solver, B12
+and B13.
 
 Counterparts of ``matvec_pallas``, ``matvec_stacked_tangent_pallas``,
-``matvec_pallas_nd``, ``matvec_stacked_tangent_pallas_nd``,
-``matvec_rows_pallas`` and ``matvec_rows_pallas_nd`` in
-``repro/kernels/kernel_matvec.py``.  K is never stored: the CUDA kernels
-(``csrc/tile_matvec.cu`` for B1 and B12, ``csrc/tile_tangent.cu``,
-``csrc/tile_matvec_nd.cu`` for B8 and B13, ``csrc/tile_tangent_nd.cu``)
+``matvec_tangent_pallas``, ``matvec_pallas_nd``,
+``matvec_stacked_tangent_pallas_nd``, ``matvec_rows_pallas`` and
+``matvec_rows_pallas_nd`` in ``repro/kernels/kernel_matvec.py``.  K is
+never stored: the CUDA kernels (``csrc/tile_matvec.cu`` for B1 and B12,
+``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``, ``csrc/tile_matvec_nd.cu``
+for B8 and B13, ``csrc/tile_tangent_nd.cu``)
 evaluate each tile in shared memory and contract it with V there, on a
 grid of row stripes x column segments; see ``csrc/tile_sweep.cuh`` and
 ``csrc/tile_sweep_nd.cuh`` for the design and what bounds it on an H100.
@@ -133,12 +135,38 @@ def tile_stacked_tangent_matvec(kind: str, params, pdots, x1, x2, v):
                          params, pdots, x1, x2, v)
 
 
+# ---------------------------------------------------------------------------
+# B3: dK/dp[pdot] @ V for one direction
+# ---------------------------------------------------------------------------
+
+def tile_jvp_plain(kind: str, params, pdot, x1, x2, v,
+                   row_chunk: int = ROW_CHUNK):
+    """(n1, b): B2's plain version with the one direction pdot."""
+    return tile_stacked_tangent_matvec_plain(kind, params, pdot[None], x1,
+                                             x2, v, row_chunk)[0]
+
+
+def tile_jvp(kind: str, params, pdot, x1, x2, v):
+    """B3: (sum_s pdot[s] dK/dp[s])(x1, x2) @ v for one (N_PARAM_SLOTS,)
+    natural-parameter direction pdot; v (n2, b) -> (n1, b).  K and dK are
+    never stored."""
+    if pdot.shape != (N_PARAM_SLOTS,):
+        raise ValueError(f"pdot must be ({N_PARAM_SLOTS},), got "
+                         f"{tuple(pdot.shape)}")
+    dev = _check(kind, params, x1, x2, v, pdot[None])
+    if dev.type == "cpu":
+        return tile_jvp_plain(kind, params, pdot, x1, x2, v)
+    return _launch_sweep("tile_jvp", (_cuda.KIND_IDS[kind],),
+                         ("tile_jvp_max_cols",), params, pdot[None], x1, x2,
+                         v)[0]
+
+
 def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None):
-    """B1, B2, B8, B9 or a row slab (B12, B13) on the card: one call of the
-    C symbol ``name``_<dtype> per chunk of columns of v, (m, n1, b) out
-    (n1, b for a value sweep, ``pdots`` None), each added to
+    """B1, B2, B3, B8, B9 or a row slab (B12, B13) on the card: one call of
+    the C symbol ``name``_<dtype> per chunk of columns of v, (m, n1, b)
+    out (n1, b for a value sweep, ``pdots`` None), each added to
     ``LAUNCHES[count or name]``.  ``lead``: the symbol's leading arguments
-    (B1/B2 the kind's id; B8/B9 d and the packed per-axis ids); ``limit``:
+    (B1-B3 the kind's id; B8/B9 d and the packed per-axis ids); ``limit``:
     the max-cols symbol and its leading arguments (the element size is
     appended).  The column segments come from :func:`row_segments`; with
     two or more, the (segments, m, n1, w) scratch of the partial stripes

@@ -712,6 +712,25 @@ class SKIOperator:
 
     # -- preconditioner hooks
 
+    def diag(self, theta):
+        """Surrogate diagonal w_i^T K_grid[idx_i, idx_i] w_i, O(n s^2),
+        from the grid's first column (entries t[|d idx|])."""
+        t = self._toep.first_column(theta, self.x.dtype)
+        G = t[torch.abs(self.idx[:, :, None] - self.idx[:, None, :])]
+        return torch.einsum("ns,nst,nt->n", self.w, G, self.w)
+
+    def matcol(self, theta, i):
+        """Surrogate column W K_grid (W^T e_i), O(m_grid s): the s
+        relevant K_grid columns from the first column.  ``i`` may be a
+        0-d index tensor on the card; it is never read back."""
+        t = self._toep.first_column(theta, self.x.dtype)
+        row = torch.as_tensor(i, device=self.idx.device).reshape(1)
+        idx_i = self.idx.index_select(0, row)                 # (1, s)
+        grid = torch.arange(self.m_grid, device=self.idx.device)
+        cols = t[torch.abs(grid[:, None] - idx_i)]           # (m_grid, s)
+        cu = cols @ self.w.index_select(0, row)[0].to(t.dtype)
+        return self._W(cu[:, None])[:, 0]
+
     def circulant_precond(self, theta, floor: float = 1e-12):
         """Grid-space circulant sandwich W E^T (C_+ + noise2)^{-1} E W^T:
         scatter, divide by the exact K_grid embedding spectrum, gather."""

@@ -3,9 +3,10 @@
 Counterpart of ``repro/kernels/ops.py``: the flat -> natural parameter
 maps run once here (not per tile), the white-noise diagonal is added
 outside the kernel as (sigma_n^2 + jitter) * v, and the wrappers of
-:mod:`.kernel_matvec` / :mod:`.kernel_tile` do the rest.  The JAX package
-pads to tile multiples with a far-away sentinel; the CUDA kernels mask
-their ragged edges instead, so nothing is padded here.
+:mod:`.kernel_matvec` / :mod:`.kernel_tile` do the rest.  The matvec's
+forward-mode rule, :func:`matvec_jvp`, is B3 on one direction.  The JAX
+package pads to tile multiples with a far-away sentinel; the CUDA kernels
+mask their ragged edges instead, so nothing is padded here.
 
 Composite kinds ("se*matern32") are separable products over (n, d)
 coordinates, one registered factor per axis; theta is the concatenation
@@ -206,6 +207,46 @@ def matvec_tangents(kind: str, theta, x1, x2, v):
         out = kernel_matvec.tile_stacked_tangent_matvec(
             kind, p, pdots, x1.to(v.dtype), x2.to(v.dtype), v)
     return out[:, :, 0] if squeeze else out
+
+
+def matvec_jvp(kind: str, theta, dtheta, x1, x2, v, dv=None):
+    """The forward-mode rule of :func:`matvec`: (K(x1, x2) @ v, its
+    tangent along (dtheta, dv)).
+
+    The counterpart of the JAX package's custom JVP of ``matvec``
+    (``_matvec_core_jvp``, ``_matvec_core_nd_jvp``), as an explicit
+    function: the parameter tangent is one B3 launch on the direction
+    pdot = dtheta @ natural_tangents(kind, theta) (composite kinds: B9
+    with that one direction), and the v tangent, when dv is given, is B1
+    (B8) on dv by linearity.  v and dv (n2,) or (n2, b)."""
+    squeeze = v.ndim == 1
+    if squeeze:
+        v = v[:, None]
+        dv = None if dv is None else dv[:, None]
+    kinds = split_kind(kind)
+    dtheta = dtheta.to(theta.dtype)
+    if len(kinds) > 1:
+        check_nd_coords(kind, kinds, x1, x2)
+        x1, x2 = x1.to(v.dtype), x2.to(v.dtype)
+        p = natural_params_nd(kind, theta).to(v.dtype)
+        pdot = torch.einsum("m,mds->ds", dtheta,
+                            natural_tangents_nd(kind, theta)).to(v.dtype)
+        out = kernel_matvec.tile_matvec_nd(kinds, p, x1, x2, v)
+        tan = kernel_matvec.tile_stacked_tangent_matvec_nd(
+            kinds, p, pdot[None], x1, x2, v)[0]
+        if dv is not None:
+            tan = tan + kernel_matvec.tile_matvec_nd(kinds, p, x1, x2, dv)
+    else:
+        x1, x2 = x1.to(v.dtype), x2.to(v.dtype)
+        p = natural_params(kind, theta).to(v.dtype)
+        pdot = (dtheta @ natural_tangents(kind, theta)).to(v.dtype)
+        out = kernel_matvec.tile_matvec(kind, p, x1, x2, v)
+        tan = kernel_matvec.tile_jvp(kind, p, pdot, x1, x2, v)
+        if dv is not None:
+            tan = tan + kernel_matvec.tile_matvec(kind, p, x1, x2, dv)
+    if squeeze:
+        return out[:, 0], tan[:, 0]
+    return out, tan
 
 
 def matrix(kind: str, theta, x1, x2):

@@ -1,5 +1,6 @@
-"""The CUDA kernels B1, B2, B4, B5, B6, B7, B8, B9, B10, B11, B12 and B13
-against their plain PyTorch versions.
+"""The CUDA kernels B1-B13 against their plain PyTorch versions, and the
+distributed GP step on a world-size-1 NCCL group against the same call on
+the CPU (gloo, plain versions).
 
 These tests need a card and skip without one.  They import neither JAX nor
 the JAX package, so they also run where JAX is not installed:
@@ -380,3 +381,75 @@ def test_cuda_row_slab_wrappers_refuse_what_the_kernels_cannot_take(
                                 torch.tensor(v2, device=cuda_device))
     empty = tkm.tile_matvec_rows("se", p, xb, xt[:0], vt[:0])
     assert empty.shape == (40, 3) and not bool(empty.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("b", [1, 8, 9])
+@pytest.mark.parametrize("kind", sorted({k for k, _ in THETAS}))
+@pytest.mark.parametrize("n1,n2", [(333, 301), (1000, 1001)])
+def test_cuda_tile_jvp_matches_plain(cuda_device, kind, b, dtype, tol, n1,
+                                     n2):
+    """B3 on ragged shapes (no multiple of the 32-row / 64-column tiles)
+    against its plain version, along a direction that moves every flat
+    coordinate; one launch per call, counted under tile_jvp."""
+    rng = np.random.default_rng(9)
+    x1 = np.sort(rng.uniform(0.0, 8760.0, n1))
+    x2 = np.sort(rng.uniform(0.0, 8760.0, n2))
+    v = rng.standard_normal((n2, b))
+    theta = torch.tensor(THETAS[(kind, "mid")], dtype=torch.float64)
+    dth = torch.tensor(rng.standard_normal(theta.shape[0]))
+    p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+    pdot = (dth @ tops.natural_tangents(kind, theta)).to(cuda_device, dtype)
+    a, c, vv = (torch.tensor(z, device=cuda_device, dtype=dtype)
+                for z in (x1, x2, v))
+    _cuda.reset_launches()
+    got = tkm.tile_jvp(kind, p, pdot, a, c, vv)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"tile_jvp": 1}
+    assert _relerr(got, tkm.tile_jvp_plain(kind, p, pdot, a, c, vv)) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_distributed_step_matches_the_cpu(cuda_device):
+    """distributed_profiled_loglik on a world-size-1 NCCL group against the
+    same call on a gloo group on the CPU, with the same probes and CG to
+    its tolerance, on the tile, Toeplitz and SKI branches (n = 1024); the
+    card's tile branch launches B3 2 m times."""
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch.mesh import make_local_group
+
+    rng = np.random.default_rng(10)
+    n = 1024
+    full = 2.0 * np.arange(1200)
+    inputs = {"pallas": np.sort(rng.uniform(0.0, float(n), n)),
+              "toeplitz": np.arange(1.0, n + 1.0),
+              "ski": np.delete(full, np.arange(3, 1200, 8))[:n]}
+    y = np.sin(np.arange(n) / 9.0) + 0.1 * rng.standard_normal(n)
+    z = rng.choice([-1.0, 1.0], (n, 8))
+    theta = {"pallas": [3.2, 1.5, 0.05, 2.8, -0.1],
+             "toeplitz": [3.2, 1.5, 0.05, 2.8, -0.1],
+             "ski": [np.log(300.0), np.log(12.42), 0.0, np.log(23.93), 0.0]}
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        group = make_local_group(dev)
+        try:
+            for br, x in inputs.items():
+                _cuda.reset_launches()
+                r = tdist.distributed_profiled_loglik(
+                    "k2", theta[br], x, y, 0.1, group, None, n_probes=8,
+                    lanczos_k=32, cg_tol=1e-10, cg_max_iter=3000, probes=z,
+                    device=dev)
+                out[(dev.type, br)] = (float(r.log_p_max), r.grad.cpu())
+                if dev.type == "cuda" and br == "pallas":
+                    assert _cuda.LAUNCHES["tile_jvp"] == 10
+                    assert _cuda.LAUNCHES["tile_tangent"] == 0
+        finally:
+            dist.destroy_process_group()
+    for br in inputs:
+        (lp, g), (lp_cpu, g_cpu) = out[("cuda", br)], out[("cpu", br)]
+        assert abs(lp - lp_cpu) <= 1e-8 * abs(lp_cpu)
+        assert _relerr(g, g_cpu) <= 1e-8

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import _pending  # noqa: F401  (imported for its module)
+from repro_torch import _pending
 from repro_torch import gp as tgp
 from repro_torch.core import engine as teng
 from repro_torch.core import iterative as tit
@@ -35,7 +35,7 @@ def _one_torch_thread():
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "large_scale_gp_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -98,6 +98,8 @@ def test_cpu_tensors_never_launch_a_kernel():
     tops.matvec_tangents("k1", theta, xt, xt, torch.ones(120, 2,
                                                          dtype=torch.float64))
     tops.matrix("k1", theta, xt, xt[:5])
+    tops.matvec_jvp("k1", theta, torch.ones(3, dtype=torch.float64), xt, xt,
+                    torch.ones(120, 3, dtype=torch.float64))
     # the near-grid path: B5 and B6 take their plain versions on the CPU
     near = _near(400)
     ski = tgp.GP.bind(_spec(), near, np.sin(near), device="cpu")
@@ -228,7 +230,7 @@ def _scattered2(n=120, seed=0):
 @pytest.mark.parametrize("what", [
     "backend_dense", "auto_small_n", "operator_lowrank", "precond_pivchol",
     "precond_rank", "dense_only_kind", "nested_evidence", "bank_pivchol",
-    "bank_precond_rank"])
+    "bank_precond_rank", "gp_rebind", "gp_sample"])
 def test_unported_branches_raise_not_implemented(what):
     x, y = _irregular()
     near = _near()
@@ -254,11 +256,26 @@ def test_unported_branches_raise_not_implemented(what):
         "bank_precond_rank": lambda: tgp.compare(
             [_spec("k1", precond_rank=8), _spec("k2", precond_rank=8)],
             near, np.sin(near), batch="on", device="cpu"),
+        "gp_rebind": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
+        .rebind(x, y),
+        "gp_sample": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
+        .sample(0, x[:5], theta=[5.0, 2.0, 0.0]),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         cases[what]()
     if what.startswith("bank_") or what.startswith("precond"):
         assert "the rest of slice S2" in str(err.value)
+    if what == "gp_rebind":
+        assert _pending.SERVE in str(err.value)
+    if what == "gp_sample":
+        assert _pending.DENSE in str(err.value)
+
+
+def test_pending_names_only_slices_still_to_come():
+    """The refusal constants name queue-A slices that are not ported; the
+    bank's constant went when the bank slice landed."""
+    names = {k for k in vars(_pending) if k.isupper()}
+    assert names == {"DENSE", "PIVCHOL", "SERVE", "LM"}
 
 
 @pytest.mark.parametrize("what", ["backend_stochastic", "auto_huge_n",

@@ -147,6 +147,30 @@ def test_toeplitz_column_oracles_match_the_reference():
     assert _rel(tp.matcol(_t(th), 33).numpy(), col) < TOL
 
 
+def _gappy(n_full=460, h=2.0):
+    """A gappy record on the 2 h cadence: every 8th sample dropped."""
+    return h * np.delete(np.arange(float(n_full)), np.arange(3, n_full, 8))
+
+
+@pytest.mark.parametrize("order", ["cubic", "linear"])
+def test_ski_column_oracles_match_the_reference(order):
+    """The SKI surrogate's diagonal and columns from the grid's first
+    column, on a gappy record (one-hot W) and on jittered points (s = 4
+    or 2 nonzero weights per row)."""
+    th = np.asarray([np.log(300.0), np.log(12.42), 0.0])
+    jit_x = _gappy() + np.random.default_rng(4).uniform(-0.3, 0.3, 402)
+    for x in (_gappy(), jit_x):
+        jp = jopers.SKIOperator("k1", jnp.asarray(x), 0.1, 1e-8,
+                                spacing=2.0, order=order)
+        tp = topers.SKIOperator("k1", _t(x), 0.1, 1e-8, spacing=2.0,
+                                order=order)
+        diag, col = (np.asarray(a) for a in jax.jit(
+            lambda th: (jp.diag(th), jp.matcol(th, 57)))(jnp.asarray(th)))
+        assert _rel(tp.diag(_t(th)).numpy(), diag) < TOL
+        assert _rel(tp.matcol(_t(th), 57).numpy(), col) < TOL
+        assert _rel(tp.matcol(_t(th), torch.tensor(57)).numpy(), col) < TOL
+
+
 # ---------------------------------------------------------------------------
 # Row slabs: B12 / B13 plain versions against matvec_rows
 # ---------------------------------------------------------------------------

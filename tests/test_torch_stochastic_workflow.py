@@ -134,6 +134,34 @@ def test_stochastic_slice_matches_the_jax_package(case, jax_random):
                                rtol=0, atol=REL * s2)
 
 
+def test_stochastic_backend_on_a_near_grid_matches_the_jax_package(
+        jax_random):
+    """backend="stochastic" with operator="ski" on a gappy 2 h record
+    (n = 512): the solver takes its pivoted-Cholesky columns from the SKI
+    operator's diag/matcol and its gradient tangents from the operator;
+    bind -> log_likelihood against the JAX package."""
+    rng = np.random.default_rng(9)
+    full = 2.0 * np.arange(586)
+    x = np.delete(full, np.arange(3, full.size, 8))[:512]
+    y = np.sin(2 * np.pi * x / 12.42) + 0.1 * rng.standard_normal(x.size)
+    theta = [math.log(300.0), math.log(12.42), 0.0]
+    opts = dict(n_probes=4, operator="ski")
+    pol = dict(backend="stochastic", n_starts=1, max_iters=1)
+    g = jgp.GP.bind(jgp.GPSpec("k1", noise=jgp.NoiseModel(sigma_n=0.1),
+                               solver=jgp.SolverPolicy(
+                                   opts=JSolverOpts(**opts), **pol)), x, y)
+    gp = tgp.GP.bind(tgp.GPSpec("k1", noise=tgp.NoiseModel(sigma_n=0.1),
+                                solver=tgp.SolverPolicy(
+                                    opts=teng.SolverOpts(**opts), **pol)),
+                     x, y, device="cpu")
+    assert (g.backend, g.op.name) == ("stochastic", "ski")
+    assert (gp.backend, gp.operator_name) == ("stochastic", "ski")
+    want = float(g.log_likelihood(np.asarray(theta), key=jax.random.key(3)))
+    got = float(gp.log_likelihood(theta, key=rnd.key(3)))
+    assert math.isfinite(want)
+    assert _close(got, want)
+
+
 # the (n, 2) recipe of chip_smoke.py's stochastic stage (make_scattered_field:
 # uniform points on [0, 63.5] x [0, 15.75], y = sin 0.8t cos 1.6s + 0.05
 # noise, "se*matern32") at n = 1024, with that stage's budget: one start,
