@@ -20,12 +20,16 @@ started together) and then:
      time the card could take (the roofline bound below); B5 is also
      timed against its plain version at n ~ 600, 2000 and 7080 (where the
      card's own crossover lies), and B7 at B = 1 is held against B5 on
-     the same inputs; B12 and B13 at b = 2048 rows of n2 = 65536 with
-     k = 1, 9 and 256 columns, a ragged b = 1000 of n2 = 65537, b = 8,
-     and one float32 case; B3 at B2's shape (n = 8760, k2, b = 9, beside
-     B2's time over its m = 5 directions), at the distributed gradient's
-     b = 1, 8 and 16, on a ragged 1000 x 1001 block, for all six kinds at
-     n = 1000, b = 8, and one float32 case;
+     the same inputs; B1 also at "se" (no Wendland window), k2 with T0 =
+     2000 h, k2 on unsorted points and k2 at b = 16 and 17 (either side of
+     its register / tensor-core switch), each B1 case with the share of
+     entries inside the window (support_share) and the (stripe, tile) pairs
+     its kernel skips (tiles_skipped); B12 and B13 at b = 2048 rows of n2 =
+     65536 with k = 1, 9 and 256 columns, a ragged b = 1000 of n2 = 65537,
+     b = 8, and one float32 case; B3 at B2's shape (n = 8760, k2, b = 9,
+     beside B2's time over its m = 5 directions), at the distributed
+     gradient's b = 1, 8 and 16, on a ragged 1000 x 1001 block, for all six
+     kinds at n = 1000, b = 8, and one float32 case;
   2. irregular phase: the paper's workflow through the front door on one
      year of hourly-scale irregular sampling (n = 8760, the tile
      operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
@@ -155,6 +159,10 @@ started together) and then:
      printed); and the stochastic objective (backend pinned, the same
      probes and epoch permutations) at n = 1024, 1-D and (n, 2).
 
+After the build, one line gives the registers, stack frame and spills
+of every instantiation of the value sweep (B1, B12) from nvcc's
+-Xptxas -v (ptxas_value_sweep).
+
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
 JSON object {"ok": true, "device": {...}}.
@@ -166,7 +174,9 @@ an H100 SXM (NVIDIA data sheet): the covariance evaluation at 34 TFLOP/s
 tensor cores).  Each arithmetic operation, comparison and each sin, cos,
 exp or division counts as one operation (a lower count than the hardware
 spends, so the bound stays a lower bound).  Per covariance entry: B1 and
-B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V; B2
+B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V, and B1
+counts only the entries that its inputs need: for k1 and k2 those inside
+the Wendland window (kernel_matvec.support_entries); B2
 counts the value and its closed-form gradient over the kind's natural
 slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles with V,
 since the m directions can be applied afterwards to the (NS, n1, b)
@@ -230,6 +240,7 @@ import itertools
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -671,20 +682,7 @@ def kernel_phase(x, xstar, dev, rng, seed):
         for n1, b in ((N, 1), (N, 8), (N, 9), (N, N_STAR), (N_STAR, 1)):
             x1 = x if n1 == N else xstar
             v = torch.tensor(rng.standard_normal((N, b)), device=dev)
-            got = km.tile_matvec(kind, p, x1, x, v)
-            want = km.tile_matvec_plain(kind, p, x1, x, v)
-            torch.cuda.synchronize()
-            err, rel = errors(got, want)
-            entries = n1 * N
-            bms, by = bound(8.0 * (n1 + N + N * b + n1 * b + 8),
-                            entries * EVAL_OPS[kind], 2.0 * entries * b)
-            cases["tile_matvec"].append(dict(
-                kind=kind, n1=n1, n2=N, b=b, max_abs_err=err,
-                max_rel_err=rel,
-                ms=time_ms(lambda: km.tile_matvec(kind, p, x1, x, v), 10),
-                plain_ms=time_ms(
-                    lambda: km.tile_matvec_plain(kind, p, x1, x, v), 3),
-                bound_ms=bms, bound_by=by))
+            cases["tile_matvec"].append(b1_case(kind, p, x1, x, v, "theta"))
         # B2: all m tangents of [alpha | 8 probes], m = 3 (k1) or 5 (k2)
         m = pd.shape[0]
         v = torch.tensor(rng.standard_normal((N, 9)), device=dev)
@@ -718,12 +716,95 @@ def kernel_phase(x, xstar, dev, rng, seed):
             plain_ms=time_ms(lambda: kt.tile_matrix_plain(kind, p, x, xstar),
                              3),
             bound_ms=bms, bound_by=by))
+    b1_extra_cases(cases, x, dev, rng)
     jvp_kernel_cases(cases, x, dev, rng)
     crossover = ski_kernel_cases(cases, dev, rng, seed)
     nd_kernel_cases(cases, dev, rng, seed)
     rows_kernel_cases(cases, dev, rng, seed)
     check_cases(cases, SOURCES)
     return cases, crossover
+
+
+def b1_case(kind, p, x1, x2, v, case):
+    """One B1 case against its plain version, timed, with the share of
+    entries inside the Wendland window (support_share; 1 for the kinds
+    without one) and the (stripe, tile) pairs the kernel skips.  The
+    bound counts the in-support entries alone: the value and 2 b
+    multiply-adds with V each."""
+    n1, n2, b = x1.shape[0], x2.shape[0], v.shape[1]
+    got = km.tile_matvec(kind, p, x1, x2, v)
+    want = km.tile_matvec_plain(kind, p, x1, x2, v)
+    torch.cuda.synchronize()
+    err, rel = errors(got, want)
+    sup = km.support_entries(kind, p, x1, x2)
+    pairs = -(-n1 // km.VALUE_ROWS) * -(-n2 // km.VALUE_COLS)
+    kept = int(km.support_tiles(kind, p, x1, x2).shape[0])
+    bms, by = bound(8.0 * (n1 + n2 + n2 * b + n1 * b + 8),
+                    sup * EVAL_OPS[kind], 2.0 * sup * b)
+    return dict(kind=kind, case=case, n1=n1, n2=n2, b=b, t0=float(p[0]),
+                max_abs_err=err, max_rel_err=rel,
+                support_share=sup / (n1 * n2), tiles_skipped=pairs - kept,
+                tiles=pairs,
+                ms=time_ms(lambda: km.tile_matvec(kind, p, x1, x2, v), 10),
+                plain_ms=time_ms(
+                    lambda: km.tile_matvec_plain(kind, p, x1, x2, v), 3),
+                bound_ms=bms, bound_by=by)
+
+
+def b1_extra_cases(cases, x, dev, rng):
+    """B1 beyond the workflow's shapes: "se" at n = 8760, b = 9 (no
+    window: the fused body alone); k2 with its window at the fit box's
+    edge, T0 = 2000 h (40% of the entries in support); k2 on the same
+    points unsorted (nearly no tile skipped); k2 at b = 16 and 17, one on
+    each side of the register / tensor-core switch."""
+    def params(kind, theta):
+        return ops.natural_params(
+            kind, torch.tensor(theta, dtype=torch.float64)).to(dev)
+
+    def rhs(b):
+        return torch.tensor(rng.standard_normal((N, b)), device=dev)
+
+    p2 = params("k2", THETA["k2"])
+    wide = list(THETA["k2"])
+    wide[0] = math.log(2000.0)
+    perm = torch.tensor(rng.permutation(N), device=dev)
+    rows = [b1_case("se", params("se", [math.log(50.0)]), x, x, rhs(9),
+                    "se"),
+            b1_case("k2", params("k2", wide), x, x, rhs(9), "t0_2000"),
+            b1_case("k2", p2, x[perm], x[perm], rhs(9), "unsorted"),
+            b1_case("k2", p2, x, x, rhs(16), "theta"),
+            b1_case("k2", p2, x, x, rhs(17), "theta")]
+    cases["tile_matvec"].extend(rows)
+
+
+def value_ptxas(log: str):
+    """Registers, stack frame and spills of each value-sweep kernel from
+    the -Xptxas -v build log: (dtype, kind id, B or NB)."""
+    pat = re.compile(r"value_(narrow|wide)_kernelI([df])Li(\d+)ELi(\d+)E")
+    rows, cur = {}, None
+    for line in log.splitlines():
+        m = pat.search(line)
+        if m and ("Compiling entry function" in line
+                  or "Function properties for" in line):
+            cur = m.group(0)
+            rows.setdefault(cur, dict(
+                path=m.group(1), dtype="float64" if m.group(2) == "d"
+                else "float32", kind=int(m.group(3)),
+                width=int(m.group(4))))
+            continue
+        if cur is None:
+            continue
+        st = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads", line)
+        if st:
+            rows[cur].update(stack=int(st.group(1)),
+                             spill_stores=int(st.group(2)),
+                             spill_loads=int(st.group(3)))
+        reg = re.search(r"Used (\d+) registers", line)
+        if reg:
+            rows[cur]["registers"] = int(reg.group(1))
+            cur = None
+    return list(rows.values())
 
 
 def jvp_bound(kind, n1, n2, b, dtype):
@@ -1093,9 +1174,10 @@ def rows_kernel_cases(cases, dev, rng, seed):
             err, rel = errors(got, want)
             bms, by = rows_bound(kinds, b, n2, k, dtype)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            grid = km.VALUE_GRID if name == "tile_rows" else km.SWEEP_GRID
             cases[name].append(dict(
                 kind=kind, b=b, n2=n2, k=k,
-                segments=km.row_segments(b, n2, sms)[0],
+                segments=km.row_segments(b, n2, sms, grid)[0],
                 dtype=str(dtype).split(".")[-1], max_abs_err=err,
                 max_rel_err=rel, ms=time_ms(kern, 10),
                 plain_ms=time_ms(plain, 3), bound_ms=bms, bound_by=by))
@@ -1502,7 +1584,7 @@ def check_cases(cases, names):
 
 # the case that stands for each kernel in the summary line: the shape the
 # workflow launches most (k2, training CG / gradient, predict cross block)
-HEADLINE = {"tile_matvec": dict(kind="k2", n1=N, b=9),
+HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
             "tile_tangent": dict(kind="k2"),
             "tile_matrix": dict(kind="k2"),
             "ski_gram": dict(b=9, dtype="float64"),
@@ -2289,6 +2371,7 @@ def main(argv=None) -> int:
 
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
+    emit({"ptxas_value_sweep": value_ptxas(_cuda.KERNELS.ptxas_log)})
     if args.six_month:
         sig, starts, iters, scan, *months = args.six_month.split(",")
         sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),

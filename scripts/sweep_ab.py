@@ -1,0 +1,83 @@
+"""Time the tile sweeps of one checkout on the card, for A/B runs.
+
+    python3 scripts/sweep_ab.py TREE LABEL
+
+TREE is the root of a checkout (this one, or a parent commit unpacked
+with ``git archive`` into a git-ignored directory); the script imports
+that tree's ``repro_torch`` and ``chip_smoke.py``, builds its kernels and
+prints one JSON line: LABEL and the time per call (``chip_smoke.time_ms``,
+median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5), B3
+(k2, b = 9), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
+b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
+(b = 2048, k = 9).  Compare two commits only within one call, in turns
+(parent, change, change, parent), each in its own process.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import sys
+
+
+def main(tree: str, label: str) -> None:
+    root = pathlib.Path(tree).resolve()
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.kernels import ops
+
+    _cuda.build()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+
+    def t64(a):
+        return torch.tensor(a, dtype=torch.float64)
+
+    res = {"tree": label}
+    x = torch.tensor(np.sort(rng.uniform(0, 8760, 8760)), device=dev)
+    p2 = ops.natural_params("k2", t64(cs.THETA["k2"])).to(dev)
+    pd = ops.natural_tangents("k2", t64(cs.THETA["k2"])).to(dev)
+    pdot = pd[0] + 0.3 * pd[1]
+    v9 = torch.tensor(rng.standard_normal((8760, 9)), device=dev)
+    res["B1_k2_b9"] = cs.time_ms(
+        lambda: km.tile_matvec("k2", p2, x, x, v9), 20)
+    res["B2_k2_m5"] = cs.time_ms(
+        lambda: km.tile_stacked_tangent_matvec("k2", p2, pd, x, x, v9), 10)
+    res["B3_k2_b9"] = cs.time_ms(
+        lambda: km.tile_jvp("k2", p2, pdot, x, x, v9), 10)
+    kinds = ("se", "matern32")
+    th = t64(cs.ND_THETA["se*matern32"])
+    pn = ops.natural_params_nd("se*matern32", th).to(dev)
+    pdn = ops.natural_tangents_nd("se*matern32", th).to(dev)
+    X, _, _ = cs.make_scattered_field(0, 4096)
+    X = torch.tensor(X, device=dev)
+    w9 = torch.tensor(rng.standard_normal((4096, 9)), device=dev)
+    res["B8_b9"] = cs.time_ms(
+        lambda: km.tile_matvec_nd(kinds, pn, X, X, w9), 20)
+    res["B9_m2"] = cs.time_ms(
+        lambda: km.tile_stacked_tangent_matvec_nd(kinds, pn, pdn, X, X, w9),
+        10)
+    xs, _, _ = cs.make_stochastic_data(0, 65536)
+    xs = torch.tensor(xs, device=dev)
+    ps = ops.natural_params("se", t64(cs.ROWS_THETA["se"])).to(dev)
+    u9 = torch.tensor(rng.standard_normal((65536, 9)), device=dev)
+    for b in (2048, 8):
+        xb = xs[torch.tensor(rng.permutation(65536)[:b], device=dev)]
+        res[f"B12_b{b}_k9"] = cs.time_ms(
+            lambda: km.tile_matvec_rows("se", ps, xb, xs, u9), 20)
+    Xs, _, _ = cs.make_scattered_field(0, 65536)
+    Xs = torch.tensor(Xs, device=dev)
+    Xb = Xs[torch.tensor(rng.permutation(65536)[:2048], device=dev)]
+    res["B13_k9"] = cs.time_ms(
+        lambda: km.tile_matvec_rows_nd(kinds, pn, Xb, Xs, u9), 10)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2])

@@ -25,7 +25,7 @@ extern "C" int tile_jvp_f64(int kind, const void* params, const void* pdot,
                             int n2, const void* v, int ldv, int b,
                             int seg_cols, int segs, void* part, void* out,
                             int ldo, void* stream) {
-  return tile::launch_sweep<double, true, 1>(
+  return tile::launch_sweep<double, 1>(
       kind, (const double*)params, (const double*)pdot, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
       seg_cols, segs, (double*)part, (double*)out, ldo,
@@ -37,7 +37,7 @@ extern "C" int tile_jvp_f32(int kind, const void* params, const void* pdot,
                             int n2, const void* v, int ldv, int b,
                             int seg_cols, int segs, void* part, void* out,
                             int ldo, void* stream) {
-  return tile::launch_sweep<float, true, 1>(
+  return tile::launch_sweep<float, 1>(
       kind, (const float*)params, (const float*)pdot, m, (const float*)x1,
       n1, (const float*)x2, n2, (const float*)v, ldv, b, seg_cols, segs,
       (float*)part, (float*)out, ldo, (cudaStream_t)stream);

@@ -1,42 +1,38 @@
-// Row-stripe sweep shared by the covariance matvec (B1), the stacked
-// tangent matvec (B2), the one-direction tangent matvec (B3) and the
-// stochastic solver's row slab (B12): out[i] = K_i(x1, x2) @ V for i < m,
-// where K_0 = K (value mode) or K_i = sum_s pdots[i, s] dK/dp[s] (tangent
-// mode).  The tangent mode's direction bound DIRS is a template
-// parameter: B2 takes MAX_DIRS (m <= 5 at run time), B3 takes 1, so its
-// projection is one register dot per entry and its m a constant.  B12 is
-// the value sweep on a short, wide slab: x1 a pre-gathered batch of b
-// rows, x2 all n2 points.
+// Row-stripe sweep shared by the stacked tangent matvec (B2) and the
+// one-direction tangent matvec (B3): out[i] = K_i(x1, x2) @ V for i < m,
+// where K_i = sum_s pdots[i, s] dK/dp[s].  The direction bound DIRS is a
+// template parameter: B2 takes MAX_DIRS (m <= 5 at run time), B3 takes 1,
+// so its projection is one register dot per entry and its m a constant.
+// The covariance matvec (B1) and the row slab (B12) have their own sweep,
+// value_sweep.cuh; it shares split_ok's rule, launch_split and
+// segments_reduce_kernel with this one, and the N-D sweeps
+// (tile_sweep_nd.cuh) share contract_tile and write_stripe too.
 //
-// Replaces the Pallas kernels _matvec_kernel,
-// _matvec_stacked_tangent_kernel, _matvec_tangent_kernel and the row-slab
-// matvec_rows_pallas of repro/kernels/kernel_matvec.py.  There the grid's
-// sequential column axis revisits one output block.  Here the grid is row stripes x column
-// segments: each block owns a stripe of SWEEP_ROWS output rows and sweeps
-// its segment of x2 in a loop.  One segment per stripe (no two blocks
-// write the same output) when the stripes alone fill the card; a short
-// slab (b = 2048 rows is 64 stripes for 132 SMs) cuts the column axis into
-// as many segments as bring the card to a few blocks per SM (the wrapper
-// picks them, kernel_matvec.row_segments).  Then each block writes its
-// partial stripe into a (segments, m n1, b) scratch and
-// segments_reduce_kernel sums the segments in a fixed order.  No atomics:
-// the result is the same from run to run.
+// Replaces the Pallas kernels _matvec_stacked_tangent_kernel and
+// _matvec_tangent_kernel of repro/kernels/kernel_matvec.py.  There the
+// grid's sequential column axis revisits one output block.  Here the grid
+// is row stripes x column segments: each block owns a stripe of SWEEP_ROWS
+// output rows and sweeps its segment of x2 in a loop.  One segment per
+// stripe (no two blocks write the same output) when the stripes alone fill
+// the card; otherwise the column axis is cut into as many segments as
+// bring the card to a few blocks per SM (the wrapper picks them,
+// kernel_matvec.row_segments).  Then each block writes its partial stripe
+// into a (segments, m n1, b) scratch and segments_reduce_kernel sums the
+// segments in a fixed order.  No atomics: the result is the same from run
+// to run.
 //
-// Per column tile the block evaluates the SWEEP_ROWS x SWEEP_COLS tile of
-// k (or of the m tangents) ONCE into shared memory, then contracts it with
-// V in chunks of SWEEP_VCOLS columns.  The (m, SWEEP_ROWS, b) accumulators
-// also live in shared memory, so a wide V (b = 512 in the predictive
-// variance) costs one sin/exp evaluation per entry, not one per chunk, and
-// no accumulator sits in registers (nothing to spill at m = 5).
+// Per column tile the block evaluates the m SWEEP_ROWS x SWEEP_COLS
+// tangent tiles ONCE into shared memory, then contracts them with V in
+// chunks of SWEEP_VCOLS columns.  The (m, SWEEP_ROWS, b) accumulators also
+// live in shared memory, so a wide V costs one gradient evaluation per
+// entry, not one per chunk, and no accumulator sits in registers (nothing
+// to spill at m = 5).
 //
 // What bounds it on an H100: nothing is read from device memory beyond x1,
 // x2, V, the output and the scratch (O(n b) bytes), so the kernel is bound
-// by operations: the fp64 sin/exp of the tile evaluation at small b, the
-// fp64 FMAs of the contraction (two shared-memory loads each) at large b.
-// The split's price is the scratch round trip, segments x m n1 x b values:
-// 9 segments of a b = 2048 slab of n2 = 65536 at k = 9 columns of V move
-// 0.12 % as many values as the slab has entries.
-// Ragged edges are masked in the kernel; nothing is padded.
+// by operations: the fp64 sin/cos/exp of the gradient evaluation at small
+// b, the fp64 FMAs of the contraction (two shared-memory loads each) at
+// large b.  Ragged edges are masked in the kernel; nothing is padded.
 #pragma once
 
 #include "tile_fns.cuh"
@@ -166,7 +162,7 @@ inline int launch_split(Launch launch, int m, int n1, int b, int segs,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KIND, bool TANGENT, int DIRS>
+template <typename T, int KIND, int DIRS>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
                   int m_arg, const T* __restrict__ x1, int n1,
@@ -194,13 +190,11 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
 #pragma unroll
   for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
   T pd[DIRS][MAX_SLOTS];
-  if (TANGENT) {
 #pragma unroll
-    for (int i = 0; i < DIRS; ++i)
+  for (int i = 0; i < DIRS; ++i)
 #pragma unroll
-      for (int s = 0; s < MAX_SLOTS; ++s)
-        pd[i][s] = (i < m && s < NS) ? pdots[i * N_PARAM_SLOTS + s] : T(0);
-  }
+    for (int s = 0; s < MAX_SLOTS; ++s)
+      pd[i][s] = (i < m && s < NS) ? pdots[i * N_PARAM_SLOTS + s] : T(0);
 
   const int n_acc = m * SWEEP_ROWS * b;
   for (int e = tid; e < n_acc; e += SWEEP_THREADS) acc[e] = T(0);
@@ -210,27 +204,23 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
     if (tid < SWEEP_COLS) xs[tid] = (c0 + tid < c_end) ? x2[c0 + tid] : T(0);
     __syncthreads();
 
-    // evaluate the tile (or its m tangents) once
+    // evaluate the m tangent tiles once
     for (int e = tid; e < SWEEP_ROWS * SWEEP_COLS; e += SWEEP_THREADS) {
       const int r = e / SWEEP_COLS;
       const int c = e % SWEEP_COLS;
       const bool ok = (row0 + r < n1) && (c0 + c < c_end);
       const T dt = ok ? x1[row0 + r] - xs[c] : T(0);
-      if (!TANGENT) {
-        ks[r * ks_stride + c] = ok ? tile_value<T, KIND>(dt, p) : T(0);
-      } else {
-        T g[MAX_SLOTS];
+      T g[MAX_SLOTS];
 #pragma unroll
-        for (int s = 0; s < MAX_SLOTS; ++s) g[s] = T(0);
-        if (ok) tile_grad<T, KIND>(dt, p, g);
+      for (int s = 0; s < MAX_SLOTS; ++s) g[s] = T(0);
+      if (ok) tile_grad<T, KIND>(dt, p, g);
 #pragma unroll
-        for (int i = 0; i < DIRS; ++i) {
-          if (i < m) {
-            T kt = T(0);
+      for (int i = 0; i < DIRS; ++i) {
+        if (i < m) {
+          T kt = T(0);
 #pragma unroll
-            for (int s = 0; s < NS; ++s) kt += pd[i][s] * g[s];
-            ks[(i * SWEEP_ROWS + r) * ks_stride + c] = kt;
-          }
+          for (int s = 0; s < NS; ++s) kt += pd[i][s] * g[s];
+          ks[(i * SWEEP_ROWS + r) * ks_stride + c] = kt;
         }
       }
     }
@@ -241,14 +231,14 @@ tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
   write_stripe<T>(acc, out + blockIdx.y * seg_stride, ldo, b, m, row0, n1);
 }
 
-template <typename T, int KIND, bool TANGENT, int DIRS>
+template <typename T, int KIND, int DIRS>
 static int launch_sweep_kind(const T* params, const T* pdots, int m,
                              const T* x1, int n1, const T* x2, int n2,
                              const T* v, int ldv, int b, int seg_cols,
                              int segs, T* part, T* out, int ldo,
                              cudaStream_t stream) {
   const size_t smem = sweep_smem_bytes(m, b, sizeof(T));
-  auto fn = tile_sweep_kernel<T, KIND, TANGENT, DIRS>;
+  auto fn = tile_sweep_kernel<T, KIND, DIRS>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -265,9 +255,8 @@ static int launch_sweep_kind(const T* params, const T* pdots, int m,
 #define SWEEP_ARGS params, pdots, m, x1, n1, x2, n2, v, ldv, b, seg_cols, \
     segs, part, out, ldo, stream
 
-// DIRS: the most tangent directions the kernel takes (B2 MAX_DIRS, B3 1;
-// value mode ignores it).
-template <typename T, bool TANGENT, int DIRS = MAX_DIRS>
+// DIRS: the most tangent directions the kernel takes (B2 MAX_DIRS, B3 1).
+template <typename T, int DIRS = MAX_DIRS>
 static int launch_sweep(int kind, const T* params, const T* pdots, int m,
                         const T* x1, int n1, const T* x2, int n2, const T* v,
                         int ldv, int b, int seg_cols, int segs, T* part,
@@ -277,15 +266,15 @@ static int launch_sweep(int kind, const T* params, const T* pdots, int m,
       sweep_smem_bytes(m, b, sizeof(T)) > (size_t)SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   switch (kind) {
-    case K1: return launch_sweep_kind<T, K1, TANGENT, DIRS>(SWEEP_ARGS);
-    case K2: return launch_sweep_kind<T, K2, TANGENT, DIRS>(SWEEP_ARGS);
-    case SE: return launch_sweep_kind<T, SE, TANGENT, DIRS>(SWEEP_ARGS);
+    case K1: return launch_sweep_kind<T, K1, DIRS>(SWEEP_ARGS);
+    case K2: return launch_sweep_kind<T, K2, DIRS>(SWEEP_ARGS);
+    case SE: return launch_sweep_kind<T, SE, DIRS>(SWEEP_ARGS);
     case MATERN12:
-      return launch_sweep_kind<T, MATERN12, TANGENT, DIRS>(SWEEP_ARGS);
+      return launch_sweep_kind<T, MATERN12, DIRS>(SWEEP_ARGS);
     case MATERN32:
-      return launch_sweep_kind<T, MATERN32, TANGENT, DIRS>(SWEEP_ARGS);
+      return launch_sweep_kind<T, MATERN32, DIRS>(SWEEP_ARGS);
     case MATERN52:
-      return launch_sweep_kind<T, MATERN52, TANGENT, DIRS>(SWEEP_ARGS);
+      return launch_sweep_kind<T, MATERN52, DIRS>(SWEEP_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,7 @@ extern "C" int tile_tangent_f64(int kind, const void* params,
                                 int ldv, int b, int seg_cols, int segs,
                                 void* part, void* out, int ldo,
                                 void* stream) {
-  return tile::launch_sweep<double, true>(
+  return tile::launch_sweep<double>(
       kind, (const double*)params, (const double*)pdots, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
       seg_cols, segs, (double*)part, (double*)out, ldo,
@@ -34,7 +34,7 @@ extern "C" int tile_tangent_f32(int kind, const void* params,
                                 int ldv, int b, int seg_cols, int segs,
                                 void* part, void* out, int ldo,
                                 void* stream) {
-  return tile::launch_sweep<float, true>(
+  return tile::launch_sweep<float>(
       kind, (const float*)params, (const float*)pdots, m, (const float*)x1,
       n1, (const float*)x2, n2, (const float*)v, ldv, b, seg_cols, segs,
       (float*)part, (float*)out, ldo, (cudaStream_t)stream);

@@ -26,12 +26,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("tile_matvec.cu", "tile_tangent.cu", "tile_jvp.cu",
-           "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu", "ski_bank.cu",
-           "tile_matvec_nd.cu", "tile_tangent_nd.cu", "ski_gram_2d.cu",
-           "ski_tangent_2d.cu")
-HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "tile_sweep_nd.cuh",
-           "ski_fft.cuh", "ski_fft_2d.cuh")
+SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
+           "tile_jvp.cu", "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu",
+           "ski_bank.cu", "tile_matvec_nd.cu", "tile_tangent_nd.cu",
+           "ski_gram_2d.cu", "ski_tangent_2d.cu")
+HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
+           "tile_sweep_nd.cuh", "ski_fft.cuh", "ski_fft_2d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \

@@ -7,14 +7,17 @@ Counterparts of ``matvec_pallas``, ``matvec_stacked_tangent_pallas``,
 ``matvec_tangent_pallas``, ``matvec_pallas_nd``,
 ``matvec_stacked_tangent_pallas_nd``, ``matvec_rows_pallas`` and
 ``matvec_rows_pallas_nd`` in ``repro/kernels/kernel_matvec.py``.  K is
-never stored: the CUDA kernels (``csrc/tile_matvec.cu`` for B1 and B12,
-``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``, ``csrc/tile_matvec_nd.cu``
-for B8 and B13, ``csrc/tile_tangent_nd.cu``)
-evaluate each tile in shared memory and contract it with V there, on a
-grid of row stripes x column segments; see ``csrc/tile_sweep.cuh`` and
-``csrc/tile_sweep_nd.cuh`` for the design and what bounds it on an H100.
-A row slab is the value sweep on a pre-gathered batch of rows, counted
-under its own name.
+never stored.  B1 and B12 (``csrc/tile_matvec.cu``) run the value sweep of
+``csrc/value_sweep.cuh``: k evaluated and contracted in registers for
+b <= 16, on the fp64 tensor cores above, and, for k1 and k2, every tile
+outside the Wendland window skipped (:func:`support_tiles` is the rule's
+twin here).  The other sweeps (``csrc/tile_tangent.cu``,
+``csrc/tile_jvp.cu``, ``csrc/tile_matvec_nd.cu`` for B8 and B13,
+``csrc/tile_tangent_nd.cu``) evaluate each tile in shared memory and
+contract it with V there; see ``csrc/tile_sweep.cuh`` and
+``csrc/tile_sweep_nd.cuh``.  All run on a grid of row stripes x column
+segments.  A row slab is the value sweep on a pre-gathered batch of rows,
+counted under its own name.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -31,13 +34,28 @@ from .ref import (N_PARAM_SLOTS, N_SLOTS, matrix_ref, product_matrix_ref,
                   product_tangent_matrices_ref, tangent_matrices_ref)
 
 ROW_CHUNK = 1024  # rows per dense block in the plain versions
-# the sweeps' grid (csrc/tile_sweep.cuh): stripes of SWEEP_ROWS rows,
-# column tiles of SWEEP_COLS, and enough column segments for
-# ROWS_BLOCKS_PER_SM blocks on each SM
+# the tile sweeps' grid (csrc/tile_sweep.cuh, B2, B3, B8, B9, B13):
+# stripes of SWEEP_ROWS rows, column tiles of SWEEP_COLS, and enough
+# column segments for ROWS_BLOCKS_PER_SM blocks on each SM
 SWEEP_ROWS = 32
 SWEEP_COLS = 64
 ROWS_BLOCKS_PER_SM = 4
+# the value sweep's (csrc/value_sweep.cuh, B1 and B12): 64-row stripes,
+# 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM (two are
+# resident; more segments spread the few tiles a Wendland window keeps
+# over more blocks), and at least one tile for each of a block's
+# VALUE_WARPS warps per segment (a slab of a few rows would otherwise
+# take a thousand one-tile segments, which the ordered reduce then sums
+# one by one)
+VALUE_ROWS = 64
+VALUE_COLS = 32
+VALUE_BLOCKS_PER_SM = 8
+VALUE_WARPS = 8
+SWEEP_GRID = (SWEEP_ROWS, SWEEP_COLS, ROWS_BLOCKS_PER_SM, 1)
+VALUE_GRID = (VALUE_ROWS, VALUE_COLS, VALUE_BLOCKS_PER_SM, VALUE_WARPS)
 MAX_GRID_Y = 65535
+# |x| <= VALUE_BIG[dtype] keeps every difference finite (value_big)
+VALUE_BIG = {torch.float64: 8.0e307, torch.float32: 1.7e38}
 # the product kernels take up to MAX_AXES factors and MAX_DIRS_ND
 # tangent directions (csrc/tile_sweep_nd.cuh)
 MAX_AXES = 4
@@ -102,7 +120,54 @@ def tile_matvec(kind: str, params, x1, x2, v):
     if dev.type == "cpu":
         return tile_matvec_plain(kind, params, x1, x2, v)
     return _launch_sweep("tile_matvec", (_cuda.KIND_IDS[kind],),
-                         ("tile_matvec_max_cols",), params, None, x1, x2, v)
+                         ("tile_matvec_max_cols",), params, None, x1, x2, v,
+                         grid=VALUE_GRID)
+
+
+def support_tiles(kind: str, params, x1, x2):
+    """The (stripe, tile) pairs that B1 and B12 evaluate, as a (P, 2)
+    long tensor in row-major order: stripes of VALUE_ROWS rows of x1,
+    tiles of VALUE_COLS columns of x2 (csrc/value_sweep.cuh, kept_tiles).
+    For k1 and k2 a pair is dropped when the [min, max] of its rows and
+    of its columns both lie within +-VALUE_BIG and their gap is >= T0 =
+    params[0]; every entry of a dropped pair is exactly 0.  The other
+    kinds keep every pair."""
+    s1 = -(-x1.shape[0] // VALUE_ROWS)
+    s2 = -(-x2.shape[0] // VALUE_COLS)
+    keep = torch.ones((s1, s2), dtype=torch.bool, device=x1.device)
+    if kind in ("k1", "k2") and s1 and s2:
+        lo1, hi1, fin1 = _tile_ranges(x1, VALUE_ROWS)
+        lo2, hi2, fin2 = _tile_ranges(x2, VALUE_COLS)
+        t0 = params[0]
+        drop = ((lo1[:, None] - hi2[None, :] >= t0)
+                | (lo2[None, :] - hi1[:, None] >= t0))
+        keep = ~(drop & fin1[:, None] & fin2[None, :])
+    return keep.nonzero()
+
+
+def _tile_ranges(x, width):
+    """Per tile of ``width`` entries of x: min, max and whether every
+    entry lies within +-VALUE_BIG (a nan does not)."""
+    pad = -x.shape[0] % width
+    big = VALUE_BIG[x.dtype]
+    inf = torch.full((pad,), float("inf"), dtype=x.dtype, device=x.device)
+    lo = torch.cat([x, inf]).view(-1, width).amin(1)
+    hi = torch.cat([x, -inf]).view(-1, width).amax(1)
+    fin = torch.cat([x.abs() <= big, torch.ones(pad, dtype=torch.bool,
+                                                 device=x.device)])
+    return lo, hi, fin.view(-1, width).all(1)
+
+
+def support_entries(kind: str, params, x1, x2,
+                    row_chunk: int = ROW_CHUNK) -> int:
+    """The entries of K(x1, x2) that the covariance needs: for k1 and k2
+    those inside the Wendland window, |dt / T0| < 1 as the tile
+    evaluates it; every entry for the other kinds."""
+    if kind not in ("k1", "k2"):
+        return int(x1.shape[0]) * int(x2.shape[0])
+    return sum(int(((x1[r:r + row_chunk, None] - x2[None, :]) / params[0])
+                   .abs().lt(1.0).sum())
+               for r in range(0, x1.shape[0], row_chunk))
 
 
 # ---------------------------------------------------------------------------
@@ -161,16 +226,18 @@ def tile_jvp(kind: str, params, pdot, x1, x2, v):
                          v)[0]
 
 
-def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None):
+def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None,
+                  grid=SWEEP_GRID):
     """B1, B2, B3, B8, B9 or a row slab (B12, B13) on the card: one call of
     the C symbol ``name``_<dtype> per chunk of columns of v, (m, n1, b)
     out (n1, b for a value sweep, ``pdots`` None), each added to
     ``LAUNCHES[count or name]``.  ``lead``: the symbol's leading arguments
     (B1-B3 the kind's id; B8/B9 d and the packed per-axis ids); ``limit``:
     the max-cols symbol and its leading arguments (the element size is
-    appended).  The column segments come from :func:`row_segments`; with
-    two or more, the (segments, m, n1, w) scratch of the partial stripes
-    is allocated here."""
+    appended).  The column segments come from :func:`row_segments` on the
+    kernel's ``grid`` (SWEEP_GRID or VALUE_GRID); with two or more, the
+    (segments, m, n1, w) scratch of the partial stripes is allocated
+    here."""
     sfx = _cuda.dtype_suffix(v.dtype)
     elem = v.element_size()
     m = 1 if pdots is None else int(pdots.shape[0])
@@ -190,7 +257,7 @@ def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None):
     stream = _cuda.stream_ptr(v.device)
     max_cols = _cuda.KERNELS.get(limit[0])(*limit[1:], elem)
     sms = torch.cuda.get_device_properties(v.device).multi_processor_count
-    segs, seg_cols = row_segments(n1, n2, sms)
+    segs, seg_cols = row_segments(n1, n2, sms, grid)
     part = (torch.empty((segs, m, n1, min(b, max_cols)), dtype=v.dtype,
                         device=v.device) if segs > 1 else None)
     for j0 in range(0, b, max_cols):
@@ -295,18 +362,20 @@ def _kinds_code(kinds) -> int:
 # B12 / B13: row slabs K(rows_x, x2) @ V of the stochastic solver
 # ---------------------------------------------------------------------------
 
-def row_segments(n1: int, n2: int, sms: int):
-    """(segments, columns per segment) of a sweep's grid: the column axis
-    of n2 >= 1 is cut into segments of whole SWEEP_COLS tiles, as many as
-    bring the ceil(n1 / SWEEP_ROWS) row stripes to ROWS_BLOCKS_PER_SM
-    blocks per SM (never more than the tiles; one when the stripes alone
-    do), covering n2 exactly."""
-    stripes = -(-n1 // SWEEP_ROWS)
-    tiles = -(-n2 // SWEEP_COLS)
-    want = -(-ROWS_BLOCKS_PER_SM * sms // stripes)
-    want = max(1, min(want, tiles, MAX_GRID_Y))
+def row_segments(n1: int, n2: int, sms: int, grid=SWEEP_GRID):
+    """(segments, columns per segment) of a sweep's grid (rows, cols,
+    per_sm, min_tiles): the column axis of n2 >= 1 is cut into segments of
+    whole ``cols`` tiles, as many as bring the ceil(n1 / rows) row stripes
+    to ``per_sm`` blocks per SM (never more than the tiles / ``min_tiles``;
+    one when the stripes alone do), covering n2 exactly.  SWEEP_GRID is
+    the tile sweeps'; B1 and B12 take VALUE_GRID."""
+    rows, cols, per_sm, min_tiles = grid
+    stripes = -(-n1 // rows)
+    tiles = -(-n2 // cols)
+    want = -(-per_sm * sms // stripes)
+    want = max(1, min(want, tiles // min_tiles, MAX_GRID_Y))
     per = -(-tiles // want)
-    return -(-tiles // per), per * SWEEP_COLS
+    return -(-tiles // per), per * cols
 
 
 def tile_matvec_rows(kind: str, params, rows_x, x2, v):
@@ -318,7 +387,7 @@ def tile_matvec_rows(kind: str, params, rows_x, x2, v):
         return tile_matvec_plain(kind, params, rows_x, x2, v)
     return _launch_sweep("tile_matvec", (_cuda.KIND_IDS[kind],),
                          ("tile_matvec_max_cols",), params, None, rows_x,
-                         x2, v, count="tile_rows")
+                         x2, v, count="tile_rows", grid=VALUE_GRID)
 
 
 def tile_matvec_rows_nd(kinds, params, rows_x, x2, v):

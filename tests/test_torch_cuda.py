@@ -89,6 +89,76 @@ def test_cuda_matvec_splits_wide_right_hand_sides(cuda_device):
     assert _relerr(out, tkm.tile_matvec_plain("se", p, x, x, v)) < 1e-12
 
 
+# the value sweep (B1, B12): k1 and k2 with the Wendland window at the fit
+# box's edges, T0 = 4 h and 2000 h; se has no window
+VALUE_THETAS = {
+    ("k1", "t0_4"): [np.log(4.0), np.log(12.4), 0.1],
+    ("k1", "t0_2000"): [np.log(2000.0), np.log(12.4), 0.1],
+    ("k2", "t0_4"): [np.log(4.0), np.log(12.4), 0.05, np.log(24.0), -0.1],
+    ("k2", "t0_2000"): [np.log(2000.0), np.log(12.4), 0.05, np.log(24.0),
+                        -0.1],
+    ("se", "no_window"): [np.log(40.0)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("b", [1, 8, 9, 16, 17, 256, 512])
+@pytest.mark.parametrize("kind,case", sorted(VALUE_THETAS))
+def test_cuda_value_sweep_matches_plain(cuda_device, kind, case, b, order,
+                                        dtype, tol):
+    """B1 on a ragged 333 x 1001 block and B12 on a batch of 100 gathered
+    rows of the same 1001 points, against their plain versions, on both
+    sides of the register / tensor-core switch (b = 16 | 17), sorted and
+    unsorted; one launch each."""
+    rng = np.random.default_rng(b + 7)
+    x1 = rng.uniform(0.0, 8760.0, 333)
+    x2 = rng.uniform(0.0, 8760.0, 1001)
+    if order == "sorted":
+        x1, x2 = np.sort(x1), np.sort(x2)
+    v = rng.standard_normal((1001, b))
+    rows = torch.tensor(rng.permutation(1001)[:100], device=cuda_device)
+    theta = torch.tensor(VALUE_THETAS[(kind, case)], dtype=torch.float64)
+    p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+    a, c, vv = (torch.tensor(z, device=cuda_device, dtype=dtype)
+                for z in (x1, x2, v))
+    _cuda.reset_launches()
+    got = tkm.tile_matvec(kind, p, a, c, vv)
+    slab = tkm.tile_matvec_rows(kind, p, c[rows], c, vv)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"tile_matvec": 1, "tile_rows": 1}
+    assert _relerr(got, tkm.tile_matvec_plain(kind, p, a, c, vv)) < tol
+    assert _relerr(slab, tkm.tile_matvec_plain(kind, p, c[rows], c,
+                                               vv)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,case", [("se", "no_window"),
+                                       ("k2", "t0_2000")])
+@pytest.mark.parametrize("b", [1, 9, 64])
+def test_cuda_value_sweep_walks_long_segments(cuda_device, kind, case, b):
+    """Enough stripes to fill the card leave one column segment of more
+    than 256 tiles (the kernel's kept-tile list takes them 256 at a
+    time); sorted k2 also skips most of them."""
+    rng = np.random.default_rng(b)
+    n1, n2 = 70000, 9000
+    x1 = np.sort(rng.uniform(0.0, 8760.0, n1))
+    x2 = np.sort(rng.uniform(0.0, 8760.0, n2))
+    v = rng.standard_normal((n2, b))
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    segs, seg_cols = tkm.row_segments(n1, n2, sms, tkm.VALUE_GRID)
+    assert seg_cols // tkm.VALUE_COLS > 256
+    theta = torch.tensor(VALUE_THETAS[(kind, case)], dtype=torch.float64)
+    p = tops.natural_params(kind, theta).to(cuda_device)
+    a, c, vv = (torch.tensor(z, device=cuda_device) for z in (x1, x2, v))
+    got = tkm.tile_matvec(kind, p, a, c, vv)
+    torch.cuda.synchronize()
+    assert _relerr(got, tkm.tile_matvec_plain(kind, p, a, c, vv)) < 1e-12
+
+
 def _ski_geometry(n_full=3001, drop=0.1, seed=9):
     """A gappy two-hour record's SKI operator (W a selection matrix)."""
     rng = np.random.default_rng(seed)

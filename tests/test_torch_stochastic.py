@@ -224,6 +224,26 @@ def test_row_segments_cover_the_columns(b, n2, sms):
     assert stripes * segs >= min(target, stripes * tiles) // 2
 
 
+@pytest.mark.parametrize("b,n2", [(2048, 65536), (1000, 65537), (8, 65536),
+                                  (2048, 1000), (33, 64), (1, 1),
+                                  (8760, 8760), (512, 8760)])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_value_row_segments_cover_the_columns(b, n2, sms):
+    """The same split on the value sweep's grid (B1, B12): 64-row
+    stripes, 32-column tiles, VALUE_BLOCKS_PER_SM blocks per SM, and a
+    tile for each warp of a block wherever n2 has that many."""
+    rows, cols, per_sm, min_tiles = tkm.VALUE_GRID
+    segs, seg_cols = tkm.row_segments(b, n2, sms, tkm.VALUE_GRID)
+    tiles = -(-n2 // cols)
+    stripes = -(-b // rows)
+    assert seg_cols % cols == 0
+    assert (segs - 1) * seg_cols < n2 <= segs * seg_cols
+    assert 1 <= segs <= min(tiles, tkm.MAX_GRID_Y)
+    assert segs == 1 or seg_cols // cols >= min_tiles
+    assert stripes * segs >= min(per_sm * sms,
+                                 stripes * (tiles // min_tiles)) // 2
+
+
 # ---------------------------------------------------------------------------
 # StochasticSolver
 # ---------------------------------------------------------------------------
