@@ -24,9 +24,14 @@ started together) and then:
      2000 h, k2 on unsorted points and k2 at b = 16 and 17 (either side of
      its register / tensor-core switch), each B1 case with the share of
      entries inside the window (support_share) and the (stripe, tile) pairs
-     its kernel skips (tiles_skipped); B12 and B13 at b = 2048 rows of n2 =
+     its kernel skips (tiles_skipped); B10 at the product-SKI cell (b = 9,
+     8, 1, 256, float32) and on a field whose time axis is longer than its
+     float64 line cap (L1 = 8192: axis 0 on the global passes), each case
+     with its plan (line cap, branches, launches per call, scratch bytes);
+     B12 and B13 at b = 2048 rows of n2 =
      65536 with k = 1, 9 and 256 columns, a ragged b = 1000 of n2 = 65537,
-     b = 8, and one float32 case; B3 at B2's shape (n = 8760, k2, b = 9,
+     b = 8, and one float32 case, and B13 on "k2*se" at k = 9; B3 at B2's
+     shape (n = 8760, k2, b = 9,
      beside B2's time over its m = 5 directions), at the distributed
      gradient's b = 1, 8 and 16, on a ragged 1000 x 1001 block, for all six
      kinds at n = 1000, b = 8, and one float32 case;
@@ -76,8 +81,9 @@ started together) and then:
        - irregular (n, 2): 4096 uniform points in the same box, the
          product tiles (CG on B8, gradients on B9): bind -> fit (one
          start, ND_SHORT_ITERS steps) -> predict;
-     each stage prints its wall-clock, CG stops and Laplace Hessian
-     eigenvalues, and the phase fails unless B10 and B11 ran in the
+     each stage prints its wall-clock, CG stops, Laplace Hessian
+     eigenvalues and peak allocation (from bind to predict), and the
+     phase fails unless B10 and B11 ran in the
      first stage and B8 and B9 in the third; after the product-SKI stage
      its answers at the fitted peak are held against the exact GP as in
      phase 3 (`nd_at_peak`: a diverging cut solve fails the run), and the
@@ -159,9 +165,11 @@ started together) and then:
      printed); and the stochastic objective (backend pinned, the same
      probes and epoch permutations) at n = 1024, 1-D and (n, 2).
 
-After the build, one line gives the registers, stack frame and spills
-of every instantiation of the value sweep (B1, B12) from nvcc's
--Xptxas -v (ptxas_value_sweep).
+After the build, two lines give the registers, stack frame and spills
+from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
+B12, and kinds 6 and 7, the product entry of B8 and B13 for d <= 2 and
+d <= 4: ptxas_value_sweep) and
+of B10's line kernels (ptxas_ski_lines).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
@@ -387,7 +395,9 @@ STOCHASTIC_ITERS = 4
 STOCHASTIC_THETA0 = {"se": [0.0], "se*matern32": [0.0, 0.0]}
 # a point inside each stage's box, where the row-slab cases run
 ROWS_THETA = {"se": [math.log(0.5)],
-              "se*matern32": [math.log(1.5), math.log(0.8)]}
+              "se*matern32": [math.log(1.5), math.log(0.8)],
+              "k2*se": [math.log(20.0), math.log(7.9), 0.0,
+                        math.log(15.7), 0.0, math.log(0.8)]}
 
 # the N-D cell: examples/spatiotemporal.py's make_field on a 128 x 64 time x
 # space grid, spacings (0.5, 0.25), 15% of the records dropped, sigma_n
@@ -395,6 +405,9 @@ ROWS_THETA = {"se": [math.log(0.5)],
 # circulant preconditioner); the irregular stage draws N_ND_IRREGULAR
 # uniform points in the same box
 FIELD_SHAPE = (128, 64)
+# a field whose time axis is longer than B10's float64 line cap: its
+# product-SKI grid is 2106 x 9 cells, L = 8192 x 32
+LONG_FIELD_SHAPE = (2100, 3)
 FIELD_SPACING = (0.5, 0.25)
 FIELD_DROP = 0.15
 FIELD_SIGMA_N = 0.05
@@ -779,18 +792,35 @@ def b1_extra_cases(cases, x, dev, rng):
 
 def value_ptxas(log: str):
     """Registers, stack frame and spills of each value-sweep kernel from
-    the -Xptxas -v build log: (dtype, kind id, B or NB)."""
-    pat = re.compile(r"value_(narrow|wide)_kernelI([df])Li(\d+)ELi(\d+)E")
+    the -Xptxas -v build log: (dtype, kind id, B or NB); kinds 6 and 7
+    are the product entry (B8, B13) for d <= 2 and d <= 4."""
+    return ptxas_rows(
+        log, r"value_(narrow|wide)_kernelI([df])Li(\d+)ELi(\d+)E",
+        lambda m: dict(path=m.group(1), dtype="float64" if m.group(2) == "d"
+                       else "float32", kind=int(m.group(3)),
+                       width=int(m.group(4))))
+
+
+def ski_lines_ptxas(log: str):
+    """The same for B10's line kernels (ski_lines_2d.cuh), per dtype."""
+    return ptxas_rows(
+        log, r"(rows_conv_2d|cols_conv_2d)I([df])E",
+        lambda m: dict(kernel=m.group(1), dtype="float64"
+                       if m.group(2) == "d" else "float32"))
+
+
+def ptxas_rows(log: str, pattern: str, describe):
+    """Registers, stack frame and spills from the -Xptxas -v build log of
+    each kernel whose mangled name matches ``pattern``; ``describe`` turns
+    the match into the row's keys."""
+    pat = re.compile(pattern)
     rows, cur = {}, None
     for line in log.splitlines():
         m = pat.search(line)
         if m and ("Compiling entry function" in line
                   or "Function properties for" in line):
             cur = m.group(0)
-            rows.setdefault(cur, dict(
-                path=m.group(1), dtype="float64" if m.group(2) == "d"
-                else "float32", kind=int(m.group(3)),
-                width=int(m.group(4))))
+            rows.setdefault(cur, describe(m))
             continue
         if cur is None:
             continue
@@ -1012,8 +1042,11 @@ def nd_kernel_cases(cases, dev, rng, seed):
     b = 9, value CG b = 1, predict's mean n1 = 512 b = 1), B9 at m = 2
     (se*matern32) and m = 6 (k2*se) with b = 9; B10 on the product-SKI
     cell at b = 9 (training CG), 8 (Lanczos), 1 (value CG), 256 (the
-    predict variance chunk) and a float32 case, B11 at m = 2, b = 9 (and
-    float32)."""
+    predict variance chunk) and a float32 case, and at b = 9 on a long
+    field (LONG_FIELD_SHAPE: L1 = 8192, beyond the float64 line cap, so
+    axis 0 takes the global passes); B11 at m = 2, b = 9 (and float32).
+    Each B10 case carries its plan: the line cap, the branch of each axis
+    and the kernel launches per call."""
     x_np, _, xstar_np = make_scattered_field(seed)
     x = torch.tensor(x_np, device=dev)
     xstar = torch.tensor(xstar_np, device=dev)
@@ -1054,32 +1087,48 @@ def nd_kernel_cases(cases, dev, rng, seed):
             plain_ms=time_ms(lambda: km.tile_stacked_tangent_matvec_nd_plain(
                 kinds, p, pd, x, x, v), 3),
             bound_ms=bms, bound_by=by))
+    theta = torch.tensor(ND_THETA[ND_KIND], dtype=torch.float64, device=dev)
+    for case, shape, runs in (
+            ("cell", FIELD_SHAPE, ((torch.float64, (9, 8, 1, 256)),
+                                   (torch.float32, (9,)))),
+            ("beyond_cap", LONG_FIELD_SHAPE, ((torch.float64, (9,)),))):
+        xf, _, _ = make_field(seed, shape=shape)
+        op = opers.select_operator(ND_KIND, torch.tensor(xf, device=dev),
+                                   FIELD_SIGMA_N, 1e-8)
+        geom = op.fused_geom
+        for dtype, shapes in runs:
+            lams = tuple(lam.to(dtype) for lam in sf.spectrum_nd(
+                op._kron.first_columns(theta), geom))
+            item = torch.finfo(dtype).bits // 8
+            for b in shapes:
+                plan = sf.gram_2d_plan(geom.shape, geom.Ls, b, item)
+                v = torch.tensor(rng.standard_normal((geom.n, b)),
+                                 device=dev, dtype=dtype)
+                got = sf.fused_gram_matvec_nd(geom, lams, op.noise2, v)
+                want = sf.fused_gram_matvec_nd_plain(geom, lams, op.noise2,
+                                                     v)
+                torch.cuda.synchronize()
+                err, rel = errors(got, want)
+                bms, by = ski_bound_2d(geom, b, 0, dtype)
+                cases["ski_gram_2d"].append(dict(
+                    kind=ND_KIND, case=case, n=geom.n, m_grid=geom.m_grid,
+                    shape=list(geom.shape), L=list(geom.Ls), b=b,
+                    dtype=str(dtype).split(".")[-1], line_cap=plan.cap,
+                    shared_lines=[L <= plan.cap for L in geom.Ls],
+                    kernel_launches=plan.launches,
+                    scratch_bytes=2 * item * sum(plan.scratch),
+                    max_abs_err=err, max_rel_err=rel,
+                    ms=time_ms(lambda: sf.fused_gram_matvec_nd(
+                        geom, lams, op.noise2, v), 20),
+                    plain_ms=time_ms(lambda: sf.fused_gram_matvec_nd_plain(
+                        geom, lams, op.noise2, v), 10),
+                    bound_ms=bms, bound_by=by))
+                del got, want
     xf, _, _ = make_field(seed)
     op = opers.select_operator(ND_KIND, torch.tensor(xf, device=dev),
                                FIELD_SIGMA_N, 1e-8)
     geom = op.fused_geom
-    theta = torch.tensor(ND_THETA[ND_KIND], dtype=torch.float64, device=dev)
-    for dtype, shapes in ((torch.float64, (9, 8, 1, 256)),
-                          (torch.float32, (9,))):
-        lams = tuple(lam.to(dtype) for lam in sf.spectrum_nd(
-            op._kron.first_columns(theta), geom))
-        for b in shapes:
-            v = torch.tensor(rng.standard_normal((geom.n, b)), device=dev,
-                             dtype=dtype)
-            got = sf.fused_gram_matvec_nd(geom, lams, op.noise2, v)
-            want = sf.fused_gram_matvec_nd_plain(geom, lams, op.noise2, v)
-            torch.cuda.synchronize()
-            err, rel = errors(got, want)
-            bms, by = ski_bound_2d(geom, b, 0, dtype)
-            cases["ski_gram_2d"].append(dict(
-                kind=ND_KIND, n=geom.n, m_grid=geom.m_grid, L=list(geom.Ls),
-                b=b, dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                max_rel_err=rel,
-                ms=time_ms(lambda: sf.fused_gram_matvec_nd(
-                    geom, lams, op.noise2, v), 20),
-                plain_ms=time_ms(lambda: sf.fused_gram_matvec_nd_plain(
-                    geom, lams, op.noise2, v), 10),
-                bound_ms=bms, bound_by=by))
+    for dtype in (torch.float64, torch.float32):
         pairs = tuple(pr.to(dtype) for pr in sf.tangent_spectra_nd(
             op._kron, theta, geom, torch.float64))
         v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev,
@@ -1133,8 +1182,9 @@ def rows_kernel_cases(cases, dev, rng, seed):
     ("se*matern32", d = 2, the (n, 2) stage's points) at the stage's
     shapes: b = 2048 rows of n2 = 65536 with k = 1 (value-only solves),
     9 ([y | 8 probes]) and 256 (a predict variance chunk); a ragged
-    b = 1000 of n2 = 65537; b = 8; one float32 case at b = 2048, k = 9.
-    The rows are a random batch of distinct points, as an epoch draws."""
+    b = 1000 of n2 = 65537; b = 8; one float32 case at b = 2048, k = 9;
+    and B13 on "k2*se" (a Wendland factor) at b = 2048, k = 9.  The rows
+    are a random batch of distinct points, as an epoch draws."""
     x1, _, _ = make_stochastic_data(seed, STOCHASTIC_N + 1)
     x2, _, _ = make_scattered_field(seed, STOCHASTIC_N + 1)
     shapes = ((2048, STOCHASTIC_N, 1, torch.float64),
@@ -1143,11 +1193,14 @@ def rows_kernel_cases(cases, dev, rng, seed):
               (1000, STOCHASTIC_N + 1, 9, torch.float64),
               (8, STOCHASTIC_N, 9, torch.float64),
               (2048, STOCHASTIC_N, 9, torch.float32))
-    for name, kind, x_np in (("tile_rows", "se", x1),
-                             ("tile_rows_nd", "se*matern32", x2)):
+    for name, kind, x_np, runs in (
+            ("tile_rows", "se", x1, shapes),
+            ("tile_rows_nd", "se*matern32", x2, shapes),
+            ("tile_rows_nd", "k2*se", x2,
+             ((2048, STOCHASTIC_N, 9, torch.float64),))):
         kinds = ops.split_kind(kind)
         theta = torch.tensor(ROWS_THETA[kind], dtype=torch.float64)
-        for b, n2, k, dtype in shapes:
+        for b, n2, k, dtype in runs:
             x = torch.tensor(x_np[:n2], device=dev, dtype=dtype)
             rows = torch.tensor(rng.permutation(n2)[:b], device=dev)
             xb = x[rows]
@@ -1174,10 +1227,9 @@ def rows_kernel_cases(cases, dev, rng, seed):
             err, rel = errors(got, want)
             bms, by = rows_bound(kinds, b, n2, k, dtype)
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            grid = km.VALUE_GRID if name == "tile_rows" else km.SWEEP_GRID
             cases[name].append(dict(
                 kind=kind, b=b, n2=n2, k=k,
-                segments=km.row_segments(b, n2, sms, grid)[0],
+                segments=km.row_segments(b, n2, sms, km.VALUE_GRID)[0],
                 dtype=str(dtype).split(".")[-1], max_abs_err=err,
                 max_rel_err=rel, ms=time_ms(kern, 10),
                 plain_ms=time_ms(plain, 3), bound_ms=bms, bound_by=by))
@@ -1592,12 +1644,12 @@ HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
             "ski_bank": dict(B=4, c=9, dtype="float64"),
             "tile_matvec_nd": dict(n1=N_ND_IRREGULAR, b=9),
             "tile_tangent_nd": dict(kind=ND_KIND),
-            "ski_gram_2d": dict(b=9, dtype="float64"),
+            "ski_gram_2d": dict(case="cell", b=9, dtype="float64"),
             "ski_tangent_2d": dict(dtype="float64"),
             "tile_rows": dict(b=2048, n2=STOCHASTIC_N, k=9,
                               dtype="float64"),
-            "tile_rows_nd": dict(b=2048, n2=STOCHASTIC_N, k=9,
-                                 dtype="float64"),
+            "tile_rows_nd": dict(kind="se*matern32", b=2048,
+                                 n2=STOCHASTIC_N, k=9, dtype="float64"),
             "tile_jvp": dict(kind="k2", n1=N, b=9, dtype="float64")}
 
 
@@ -1957,6 +2009,7 @@ def nd_phase(seed):
     stage = Stages("nd_product_ski", ND_KERNELS, info)
     _cuda.reset_launches()
     _sync.reset()
+    torch.cuda.reset_peak_memory_stats()
     session = stage("bind", bind(seq_spec, x_np, y_np))
     desc = info()
     if (session.backend, desc["operator"], desc["fused"], desc["precond"],
@@ -1984,6 +2037,7 @@ def nd_phase(seed):
                              "preconditioner and the masked-circulant SLQ")
     post = stage("predict", lambda: fitted.predict(xstar_np,
                                                    cross="interp"))
+    peak_bytes = torch.cuda.max_memory_allocated()
     launches = dict(_cuda.LAUNCHES)
     syncs = dict(_sync.COUNT)
     res = fitted.result
@@ -2000,6 +2054,7 @@ def nd_phase(seed):
                               n_modes=r.n_modes, n_evals=r.n_evals_train)
                  for r in reports},
         ln_b_matern32_vs_se=lnb, bank=bank, host_syncs=sum(syncs.values()),
+        peak_allocated_bytes=peak_bytes,
         launches=launches, stage_launches=stage.launches,
         var_min=float(post.var.min()), var_max=float(post.var.max()),
         sigma_f_hat_sq=sf2, cg_stops=stage.cg_stops,
@@ -2031,6 +2086,7 @@ def nd_phase(seed):
         spec = gp.GPSpec(ND_KIND, noise=noise, solver=short)
         stage = Stages(f"nd_{name}", ND_KERNELS, info)
         _cuda.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         session = stage("bind", bind(spec, x_s, y_s))
         if (session.backend, session.operator_name) != ("iterative", want):
             raise AssertionError(f"bound {session!r}, expected the iterative "
@@ -2043,6 +2099,7 @@ def nd_phase(seed):
             **info(), stage_s=stage.s,
             log_p_max=float(res.log_p_max), theta_hat=res.theta_hat.tolist(),
             n_evals=res.n_evals, launches=dict(_cuda.LAUNCHES),
+            peak_allocated_bytes=torch.cuda.max_memory_allocated(),
             stage_launches=stage.launches, var_min=float(post.var.min()),
             var_max=float(post.var.max()), sigma_f_hat_sq=sf2,
             cg_stops=stage.cg_stops)
@@ -2372,6 +2429,7 @@ def main(argv=None) -> int:
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
     emit({"ptxas_value_sweep": value_ptxas(_cuda.KERNELS.ptxas_log)})
+    emit({"ptxas_ski_lines": ski_lines_ptxas(_cuda.KERNELS.ptxas_log)})
     if args.six_month:
         sig, starts, iters, scan, *months = args.six_month.split(",")
         sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),

@@ -8,9 +8,15 @@ that tree's ``repro_torch`` and ``chip_smoke.py``, builds its kernels and
 prints one JSON line: LABEL and the time per call (``chip_smoke.time_ms``,
 median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5), B3
 (k2, b = 9), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
-b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
-(b = 2048, k = 9).  Compare two commits only within one call, in turns
-(parent, change, change, parent), each in its own process.
+b = 9), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
+cell of ``chip_smoke.py``, B10 (its product-SKI cell, b = 1, 9 and 256)
+and B11 (m = 2, b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
+(b = 2048, "se*matern32", k = 9 and 256).  The keys ending in ``_dev``
+give the card's time alone for B8, B10 and B13: 20 calls captured in one
+CUDA graph and replayed (CUDA events around the replay, over 20), so the
+host's work per call, which the other keys include, drops out.  Compare
+two commits only within one call, in turns (parent, change, change,
+parent), each in its own process.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ def main(tree: str, label: str) -> None:
     import chip_smoke as cs
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.kernels import operators as opers
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ski_fused as sf
 
     _cuda.build()
     dev = torch.device("cuda")
@@ -38,6 +46,33 @@ def main(tree: str, label: str) -> None:
 
     def t64(a):
         return torch.tensor(a, dtype=torch.float64)
+
+    def graph_ms(fn, calls=20, replays=5):
+        """The card's time per call: ``calls`` calls in one CUDA graph."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # relaxed: the sweeps set their kernels' shared-memory attribute
+        # (not a stream operation) while the graph is captured
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(replays):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / calls)
+        del graph
+        return sorted(times)[len(times) // 2]
 
     res = {"tree": label}
     x = torch.tensor(np.sort(rng.uniform(0, 8760, 8760)), device=dev)
@@ -60,9 +95,44 @@ def main(tree: str, label: str) -> None:
     w9 = torch.tensor(rng.standard_normal((4096, 9)), device=dev)
     res["B8_b9"] = cs.time_ms(
         lambda: km.tile_matvec_nd(kinds, pn, X, X, w9), 20)
+    res["B8_b9_dev"] = graph_ms(lambda: km.tile_matvec_nd(kinds, pn, X, X,
+                                                          w9))
     res["B9_m2"] = cs.time_ms(
         lambda: km.tile_stacked_tangent_matvec_nd(kinds, pn, pdn, X, X, w9),
         10)
+    xt, _, _, _ = cs.make_tidal_data(0)
+    sop = opers.select_operator("k2", torch.tensor(xt, device=dev),
+                                cs.TIDAL_SIGMA_N, 1e-8)
+    sgeom = sop.fused_geom
+    sth = torch.tensor(cs.SKI_THETA["k2"], dtype=torch.float64, device=dev)
+    lam5 = sf.spectrum(opers.ToeplitzOperator("k2", sop.grid).first_column(
+        sth), sgeom)
+    lam6 = sf.spectrum(opers.ToeplitzOperator("k2", sop.grid)
+                       .first_column_jacobian(sth), sgeom)
+    lam7 = cs.bank_spectra(sop, 4, torch.float64)
+    s9 = torch.tensor(rng.standard_normal((sgeom.n, 9)), device=dev)
+    s49 = torch.tensor(rng.standard_normal((sgeom.n, 4, 9)), device=dev)
+    res["B5_b9"] = cs.time_ms(
+        lambda: sf.fused_gram_matvec(sgeom, lam5, sop.noise2, s9), 20)
+    res["B6_k2_m5"] = cs.time_ms(
+        lambda: sf.fused_tangent_matvecs(sgeom, lam6, s9), 20)
+    res["B7_B4_c9"] = cs.time_ms(
+        lambda: sf.fused_bank_matvec(sgeom, lam7, sop.noise2, s49), 20)
+    xf, _, _ = cs.make_field(0)
+    op = opers.select_operator(cs.ND_KIND, torch.tensor(xf, device=dev),
+                               cs.FIELD_SIGMA_N, 1e-8)
+    geom = op.fused_geom
+    lams = sf.spectrum_nd(op._kron.first_columns(th.to(dev)), geom)
+    for b in (1, 9, 256):
+        vb = torch.tensor(rng.standard_normal((geom.n, b)), device=dev)
+        res[f"B10_b{b}"] = cs.time_ms(
+            lambda: sf.fused_gram_matvec_nd(geom, lams, op.noise2, vb), 20)
+        res[f"B10_b{b}_dev"] = graph_ms(
+            lambda: sf.fused_gram_matvec_nd(geom, lams, op.noise2, vb))
+    pairs = sf.tangent_spectra_nd(op._kron, th.to(dev), geom, torch.float64)
+    v9 = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev)
+    res["B11_m2"] = cs.time_ms(
+        lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v9), 20)
     xs, _, _ = cs.make_stochastic_data(0, 65536)
     xs = torch.tensor(xs, device=dev)
     ps = ops.natural_params("se", t64(cs.ROWS_THETA["se"])).to(dev)
@@ -76,6 +146,11 @@ def main(tree: str, label: str) -> None:
     Xb = Xs[torch.tensor(rng.permutation(65536)[:2048], device=dev)]
     res["B13_k9"] = cs.time_ms(
         lambda: km.tile_matvec_rows_nd(kinds, pn, Xb, Xs, u9), 10)
+    res["B13_k9_dev"] = graph_ms(
+        lambda: km.tile_matvec_rows_nd(kinds, pn, Xb, Xs, u9), 5)
+    u256 = torch.tensor(rng.standard_normal((65536, 256)), device=dev)
+    res["B13_k256"] = cs.time_ms(
+        lambda: km.tile_matvec_rows_nd(kinds, pn, Xb, Xs, u256), 5)
     print(json.dumps(res), flush=True)
 
 

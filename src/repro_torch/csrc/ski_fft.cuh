@@ -96,21 +96,9 @@ __global__ void wt_pack(int n, int m, int L, int d0, int s,
   buf[g] = cplx<T>{re, im};
 }
 
-// The twiddles and the radix-R butterfly of one Stockham pass on the R
-// values v[r] = in[j + r L / R] of sub-transform position k = j mod Ns.
+// The radix-R butterfly on R values that already carry their twiddles.
 template <typename T, int R, bool INV>
-__device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
-#pragma unroll
-  for (int r = 1; r < R; ++r) {
-    // e^{-+2 pi i k r / (Ns R)}: an exact power-of-two fraction of pi
-    double sn, cs;
-    sincospi((INV ? 2.0 : -2.0) * (double)(k * r) / (double)(Ns * R), &sn,
-             &cs);
-    const T c = T(cs), s = T(sn);
-    const T re = v[r].re * c - v[r].im * s;
-    const T im = v[r].re * s + v[r].im * c;
-    v[r] = cplx<T>{re, im};
-  }
+__device__ __forceinline__ void butterfly_core(cplx<T>* v) {
   if (R == 2) {
     const cplx<T> a = v[0], b = v[1];
     v[0] = cplx<T>{a.re + b.re, a.im + b.im};
@@ -129,6 +117,24 @@ __device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
   }
 }
 
+// The twiddles and the radix-R butterfly of one Stockham pass on the R
+// values v[r] = in[j + r L / R] of sub-transform position k = j mod Ns.
+template <typename T, int R, bool INV>
+__device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
+#pragma unroll
+  for (int r = 1; r < R; ++r) {
+    // e^{-+2 pi i k r / (Ns R)}: an exact power-of-two fraction of pi
+    double sn, cs;
+    sincospi((INV ? 2.0 : -2.0) * (double)(k * r) / (double)(Ns * R), &sn,
+             &cs);
+    const T c = T(cs), s = T(sn);
+    const T re = v[r].re * c - v[r].im * s;
+    const T im = v[r].re * s + v[r].im * c;
+    v[r] = cplx<T>{re, im};
+  }
+  butterfly_core<T, R, INV>(v);
+}
+
 // One radix-R Stockham pass (natural order in, natural order out after
 // the last pass) along `axis` of every (L1, L2) plane: each plane is
 // (outer, len, inner) with (1, L1, L2) for axis 0 and (L1, L2, 1) for
@@ -139,8 +145,9 @@ __device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
 // col % cols_src of src; a non-null lam2 scales the loads by the spectrum
 // of dir = col / P: lam2[dir, r2] (1-D: each direction's or member's own
 // spectrum), times lam1[dir, r1] where lam1 is non-null (2-D: the outer
-// product of the axis spectra).  The multiply is folded into the first
-// inverse pass.
+// product of the axis spectra); lam1 alone scales by lam1[dir, r1] (the
+// 2-D gram's axis-0 convolution, ski_lines_2d.cuh).  The multiply is
+// folded into the first inverse pass.
 template <typename T, int R, bool INV>
 __global__ void fft_stage(const cplx<T>* __restrict__ src,
                           cplx<T>* __restrict__ dst, int L1, int L2,
@@ -167,15 +174,20 @@ __global__ void fft_stage(const cplx<T>* __restrict__ src,
 #pragma unroll
   for (int r = 0; r < R; ++r)
     v[r] = in[(row0 + j + r * stride) * inner + i];
-  if (lam2 != nullptr) {
+  if (lam1 != nullptr || lam2 != nullptr) {
     const int dir = col / P;
     const T* l1 = lam1 != nullptr ? lam1 + (size_t)dir * L1 : nullptr;
-    const T* l2 = lam2 + (size_t)dir * L2;
+    const T* l2 = lam2 != nullptr ? lam2 + (size_t)dir * L2 : nullptr;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int pos = j + r * stride;
-      T l = axis == 0 ? l2[i] : l2[pos];
-      if (l1 != nullptr) l *= axis == 0 ? l1[pos] : l1[o];
+      T l;
+      if (l2 != nullptr) {
+        l = axis == 0 ? l2[i] : l2[pos];
+        if (l1 != nullptr) l *= axis == 0 ? l1[pos] : l1[o];
+      } else {
+        l = axis == 0 ? l1[pos] : l1[o];
+      }
       v[r].re *= l;
       v[r].im *= l;
     }
@@ -253,7 +265,7 @@ cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L1,
   return cudaGetLastError();
 }
 
-inline int log2_of(int L) {
+__host__ __device__ inline int log2_of(int L) {
   int k = 0;
   while ((1 << k) < L) ++k;
   return k;

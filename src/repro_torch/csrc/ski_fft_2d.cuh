@@ -1,10 +1,13 @@
-// The fused 2-D product-SKI sandwich, shared by B10 (ski_gram_2d.cu) and
-// B11 (ski_tangent_2d.cu):
+// The fused 2-D product-SKI sandwich on whole-plane passes: B11
+// (ski_tangent_2d.cu) runs it, and B10 (ski_gram_2d.cu, ski_lines_2d.cuh)
+// takes its W^T, W and Stockham passes for an axis longer than the
+// shared-memory line cap:
 //
 //     out_i = W ifft2((lam1_i (x) lam2_i) * fft2(pad(W^T v))) [+ noise2 v]
 //
-// Replaces the TPU kernels fused_gram_matvec_nd and fused_tangent_matvecs_nd
-// of src/repro/kernels/ski_fused.py.  There one Pallas body runs W^T, the
+// Replaces the TPU kernel fused_tangent_matvecs_nd (and, before B10 moved
+// to ski_lines_2d.cuh, fused_gram_matvec_nd) of
+// src/repro/kernels/ski_fused.py.  There one Pallas body runs W^T, the
 // axis-0 FFT, a transpose held in VMEM, the axis-1 FFT, the spectrum
 // multiply and the mirrored inverse stages.  Here the transpose is gone: the
 // Stockham pass of ski_fft.cuh (fft_stage, which B5-B7 run on the (1, L)
@@ -39,22 +42,18 @@
 // gridDim.y: a predict-variance chunk of 256 columns at L1 = 512,
 // L2 = 256 is 128 packed planes of 131072 points.
 //
-// What bounds it on an H100: at the main path's shape (n ~ 6960 in a
-// 134 x 70 grid, L1 x L2 = 512 x 256, b = 9, float64) the function must
-// move ~1.2 MB (~0.4 us at 3.35 TB/s) and do ~2e7 operations on 4.5
-// packed planes (~0.7 us at 34 TFLOP/s fp64): the transforms at the least
-// embedding (266 x 138), over only the lines that hold data or output.
-// This first design transforms the whole 512 x 256 plane (~1e8
-// operations) and is bound by launches and by the traffic of its passes: W^T + log4 L2 + log4 L1
-// Stockham passes forward and back + W (20 launches at 512 x 256), every
-// pass reading and writing the (P, L1, L2) complex ping-pong buffer
-// (2 MB per packed column: 10 MB at b = 9, in the 50 MB L2; 268 MB at
-// b = 256, from HBM).  What the design does about it: radix-4 passes;
-// strided passes read and write whole rows of the plane (consecutive
-// threads on consecutive addresses along the other axis); twiddles from
-// sincospi on exact power-of-two fractions.  Skipping the all-zero rows
-// of the padded plane in the forward axis-1 pass, and a shared-memory
-// transform per row, are the next steps.
+// What bounds it on an H100: at B11's shape (n ~ 6960 in a 134 x 70 grid,
+// L1 x L2 = 512 x 256, b = 9, m_dirs = 2, float64) the function must move
+// ~1.2 MB and do ~4e7 operations: far below what one launch costs.  This
+// design transforms the whole 512 x 256 plane (~1e8 operations per packed
+// column) and is bound by launches and by the traffic of its passes: W^T +
+// log4 L2 + log4 L1 Stockham passes forward and back + W (20 launches at
+// 512 x 256), every pass reading and writing the (P, L1, L2) complex
+// ping-pong buffer (2 MB per packed column).  What the design does about
+// it: radix-4 passes; strided passes read and write whole rows of the
+// plane (consecutive threads on consecutive addresses along the other
+// axis); twiddles from sincospi on exact power-of-two fractions.  B10's
+// line kernels (ski_lines_2d.cuh) are the next step for B11 too.
 
 #pragma once
 

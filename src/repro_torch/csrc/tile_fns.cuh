@@ -21,6 +21,14 @@ constexpr int N_PARAM_SLOTS = 8;
 constexpr int MAX_SLOTS = 5;   // natural slots that carry a derivative (k2)
 constexpr int MAX_DIRS = 5;    // tangent directions per launch (k2: m = 5)
 
+// The separable product kinds (B8, B9, B13): at most MAX_AXES factors,
+// the family of axis a in bits 4a .. 4a + 3 of a packed code.
+constexpr int MAX_AXES = 4;
+
+__host__ __device__ inline int axis_kind(int code, int a) {
+  return (code >> (4 * a)) & 15;
+}
+
 template <int KIND>
 __host__ __device__ constexpr int kind_slots() {
   return KIND == K1 ? 3 : (KIND == K2 ? 5 : 1);

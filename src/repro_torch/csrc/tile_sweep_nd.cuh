@@ -1,24 +1,20 @@
-// Row-stripe sweep of the separable product kernels on (n, d) coordinates,
-// shared by B8 (tile_matvec_nd.cu), B9 (tile_tangent_nd.cu) and the
-// stochastic solver's product row slab B13 (B8's sweep on a pre-gathered
-// batch of rows):
-// out[i] = K_i(x1, x2) @ V for i < m, where K_0 = prod_a k_a (value mode)
-// or, in tangent mode, K_i = sum_a (sum_s pdots[i, a, s] dk_a/dp[s])
-// prod_{b != a} k_b: the product rule applied by hand.
+// Row-stripe sweep of the stacked tangents of a separable product kernel
+// on (n, d) coordinates, B9 (tile_tangent_nd.cu): out[i] = K_i(x1, x2) @ V
+// for i < m, K_i = sum_a (sum_s pdots[i, a, s] dk_a/dp[s]) prod_{b != a}
+// k_b: the product rule applied by hand.  (The product's value, B8 and
+// B13, runs the value sweep of value_sweep.cuh.)
 //
-// Replaces the Pallas kernels _matvec_kernel_nd,
-// _matvec_stacked_tangent_kernel_nd and the row-slab matvec_rows_pallas_nd
-// of repro/kernels/kernel_matvec.py.
-// The tangent body there linearises the product tile with jax.linearize;
-// CUDA has no such thing, so each entry evaluates every factor's value and
-// closed-form gradient once (tile_grad in tile_fns.cuh) and each direction
-// is the product rule over those.
+// Replaces the Pallas kernel _matvec_stacked_tangent_kernel_nd of
+// repro/kernels/kernel_matvec.py, which linearises the product tile with
+// jax.linearize; CUDA has no such thing, so each entry evaluates every
+// factor's value and closed-form gradient once (tile_grad in tile_fns.cuh)
+// and each direction is the product rule over those.
 //
 // Layout: x1 (n1, d) and x2 (n2, d) row-major, params (d, 8), pdots
 // (m, d, 8).  The sweep is the one of tile_sweep.cuh (a grid of stripes of
 // SWEEP_ROWS output rows x column segments, each block's segment of x2 in
-// a loop, the tile evaluated once into shared memory and contracted with V
-// in chunks, the segments' partial stripes summed in a fixed order; no
+// a loop, the tiles evaluated once into shared memory and contracted with
+// V in chunks, the segments' partial stripes summed in a fixed order; no
 // atomics), with two changes:
 //   * the family of each axis is dispatched at run time inside the tile
 //     evaluation (a switch on a uniform value, no divergence), so one
@@ -31,10 +27,10 @@
 //
 // What bounds it on an H100: as in tile_sweep.cuh, nothing is read from
 // device memory beyond x1, x2, V and the output (O(n (d + b)) bytes), so
-// it is bound by operations: d factor evaluations (fp64 exp, and sin for
-// k1/k2) per entry at small b, the fp64 FMAs of the contraction at large
-// b.  The design shares one evaluation of the product tile (and of all d
-// factor gradients) across the b columns and m directions.
+// it is bound by operations: d factor values and gradients (fp64 exp, and
+// sin/cos for k1/k2) per entry at small b, the fp64 FMAs of the
+// contraction at large b.  The design shares one evaluation of all d
+// factor gradients across the b columns and m directions.
 #pragma once
 
 #include "tile_fns.cuh"
@@ -42,20 +38,7 @@
 
 namespace tile {
 
-constexpr int MAX_AXES = 4;
 constexpr int MAX_DIRS_ND = 10;
-
-template <typename T>
-__device__ __forceinline__ T tile_value_rt(int kind, T dt, const T* p) {
-  switch (kind) {
-    case K1: return tile_value<T, K1>(dt, p);
-    case K2: return tile_value<T, K2>(dt, p);
-    case SE: return tile_value<T, SE>(dt, p);
-    case MATERN12: return tile_value<T, MATERN12>(dt, p);
-    case MATERN32: return tile_value<T, MATERN32>(dt, p);
-    default: return tile_value<T, MATERN52>(dt, p);
-  }
-}
 
 template <typename T>
 __device__ __forceinline__ T tile_grad_rt(int kind, T dt, const T* p, T* g) {
@@ -67,10 +50,6 @@ __device__ __forceinline__ T tile_grad_rt(int kind, T dt, const T* p, T* g) {
     case MATERN32: return tile_grad<T, MATERN32>(dt, p, g);
     default: return tile_grad<T, MATERN52>(dt, p, g);
   }
-}
-
-__host__ __device__ inline int axis_kind(int code, int a) {
-  return (code >> (4 * a)) & 15;
 }
 
 // Shared layout in elements: params (d, 8) | pdots (m, d, 8) | x2 tile
@@ -92,7 +71,7 @@ inline int sweep_nd_max_cols(int m, int d, size_t elem) {
   return b;
 }
 
-template <typename T, bool TANGENT>
+template <typename T>
 __global__ void __launch_bounds__(SWEEP_THREADS)
 tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
                      const T* __restrict__ pdots, int m,
@@ -107,7 +86,7 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
   const int vs_stride = vw + 1;
   T* ps = reinterpret_cast<T*>(smem_raw);
   T* pds = ps + d * N_PARAM_SLOTS;
-  T* xs = pds + (TANGENT ? m * d * N_PARAM_SLOTS : 0);
+  T* xs = pds + m * d * N_PARAM_SLOTS;
   T* ks = xs + SWEEP_COLS * d;
   T* vs = ks + m * SWEEP_ROWS * ks_stride;
   T* acc = vs + SWEEP_COLS * vs_stride;
@@ -119,9 +98,8 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
 
   for (int e = tid; e < d * N_PARAM_SLOTS; e += SWEEP_THREADS)
     ps[e] = params[e];
-  if (TANGENT)
-    for (int e = tid; e < m * d * N_PARAM_SLOTS; e += SWEEP_THREADS)
-      pds[e] = pdots[e];
+  for (int e = tid; e < m * d * N_PARAM_SLOTS; e += SWEEP_THREADS)
+    pds[e] = pdots[e];
   const int n_acc = m * SWEEP_ROWS * b;
   for (int e = tid; e < n_acc; e += SWEEP_THREADS) acc[e] = T(0);
 
@@ -131,53 +109,40 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
       xs[e] = (c0 + e / d < c_end) ? x2[(size_t)c0 * d + e] : T(0);
     __syncthreads();
 
-    // evaluate the product tile (or its m tangents) once
+    // evaluate the m tangent tiles of the product once
     for (int e = tid; e < SWEEP_ROWS * SWEEP_COLS; e += SWEEP_THREADS) {
       const int r = e / SWEEP_COLS;
       const int c = e % SWEEP_COLS;
       const bool ok = (row0 + r < n1) && (c0 + c < c_end);
       const T* xr = x1 + (size_t)(ok ? row0 + r : 0) * d;
       const T* xc = xs + c * d;
-      if (!TANGENT) {
-        T k = T(0);
-        if (ok) {
-          k = T(1);
+      T kv[MAX_AXES];
+      T gv[MAX_AXES][MAX_SLOTS];
 #pragma unroll
-          for (int a = 0; a < MAX_AXES; ++a)
-            if (a < d)
-              k *= tile_value_rt<T>(axis_kind(code, a), xr[a] - xc[a],
-                                    ps + a * N_PARAM_SLOTS);
-        }
-        ks[r * ks_stride + c] = k;
-      } else {
-        T kv[MAX_AXES];
-        T gv[MAX_AXES][MAX_SLOTS];
+      for (int a = 0; a < MAX_AXES; ++a) {
+        kv[a] = T(0);
+#pragma unroll
+        for (int s = 0; s < MAX_SLOTS; ++s) gv[a][s] = T(0);
+        if (ok && a < d)
+          kv[a] = tile_grad_rt<T>(axis_kind(code, a), xr[a] - xc[a],
+                                  ps + a * N_PARAM_SLOTS, gv[a]);
+      }
+      for (int i = 0; i < m; ++i) {
+        T kt = T(0);
 #pragma unroll
         for (int a = 0; a < MAX_AXES; ++a) {
-          kv[a] = T(0);
+          if (a < d) {
+            const T* pd = pds + (i * d + a) * N_PARAM_SLOTS;
+            T dk = T(0);
 #pragma unroll
-          for (int s = 0; s < MAX_SLOTS; ++s) gv[a][s] = T(0);
-          if (ok && a < d)
-            kv[a] = tile_grad_rt<T>(axis_kind(code, a), xr[a] - xc[a],
-                                    ps + a * N_PARAM_SLOTS, gv[a]);
-        }
-        for (int i = 0; i < m; ++i) {
-          T kt = T(0);
+            for (int s = 0; s < MAX_SLOTS; ++s) dk += pd[s] * gv[a][s];
 #pragma unroll
-          for (int a = 0; a < MAX_AXES; ++a) {
-            if (a < d) {
-              const T* pd = pds + (i * d + a) * N_PARAM_SLOTS;
-              T dk = T(0);
-#pragma unroll
-              for (int s = 0; s < MAX_SLOTS; ++s) dk += pd[s] * gv[a][s];
-#pragma unroll
-              for (int bb = 0; bb < MAX_AXES; ++bb)
-                if (bb < d && bb != a) dk *= kv[bb];
-              kt += dk;
-            }
+            for (int bb = 0; bb < MAX_AXES; ++bb)
+              if (bb < d && bb != a) dk *= kv[bb];
+            kt += dk;
           }
-          ks[(i * SWEEP_ROWS + r) * ks_stride + c] = kt;
         }
+        ks[(i * SWEEP_ROWS + r) * ks_stride + c] = kt;
       }
     }
     __syncthreads();
@@ -187,20 +152,19 @@ tile_sweep_nd_kernel(int d, int code, const T* __restrict__ params,
   write_stripe<T>(acc, out + blockIdx.y * seg_stride, ldo, b, m, row0, n1);
 }
 
-template <typename T, bool TANGENT>
+template <typename T>
 static int launch_sweep_nd(int d, int code, const T* params, const T* pdots,
                            int m, const T* x1, int n1, const T* x2, int n2,
                            const T* v, int ldv, int b, int seg_cols, int segs,
                            T* part, T* out, int ldo, cudaStream_t stream) {
   if (d < 1 || d > MAX_AXES || n1 <= 0 || b <= 0 || m <= 0 ||
-      m > (TANGENT ? MAX_DIRS_ND : 1) || b > MAX_COLS ||
-      !split_ok(n2, seg_cols, segs, part))
+      m > MAX_DIRS_ND || b > MAX_COLS || !split_ok(n2, seg_cols, segs, part))
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < d; ++a)
     if (axis_kind(code, a) > MATERN52) return (int)cudaErrorInvalidValue;
   const size_t smem = sweep_nd_smem_bytes(m, d, b, sizeof(T));
   if (smem > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  auto fn = tile_sweep_nd_kernel<T, TANGENT>;
+  auto fn = tile_sweep_nd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

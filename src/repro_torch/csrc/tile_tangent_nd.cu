@@ -8,9 +8,16 @@
 // and closed-form natural-slot gradient once (tile_grad in tile_fns.cuh),
 // and each direction sums, over the axes, its gradient contraction on one
 // axis times the other axes' values.  The sweep is tile_sweep_nd_kernel in
-// tangent mode (tile_sweep_nd.cuh).  Plain C interface for ctypes, as in
-// tile_matvec_nd.cu.
+// tangent mode (tile_sweep_nd.cuh).  Plain C interface for ctypes: pointers
+// and the stream are void*, each call returns cudaGetLastError() of its
+// launches, nothing synchronises; kinds_code packs the d family ids four
+// bits each.
 #include "tile_sweep_nd.cuh"
+
+// The widest V one launch takes for m directions on d axes.
+extern "C" int tile_nd_max_cols(int m, int d, int elem_bytes) {
+  return tile::sweep_nd_max_cols(m, d, (size_t)elem_bytes);
+}
 
 // part: the (segs, m, n1, b) scratch, unused (may be null) when segs == 1.
 extern "C" int tile_tangent_nd_f64(int d, int kinds_code, const void* params,
@@ -19,7 +26,7 @@ extern "C" int tile_tangent_nd_f64(int d, int kinds_code, const void* params,
                                    const void* v, int ldv, int b,
                                    int seg_cols, int segs, void* part,
                                    void* out, int ldo, void* stream) {
-  return tile::launch_sweep_nd<double, true>(
+  return tile::launch_sweep_nd<double>(
       d, kinds_code, (const double*)params, (const double*)pdots, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
       seg_cols, segs, (double*)part, (double*)out, ldo,
@@ -32,7 +39,7 @@ extern "C" int tile_tangent_nd_f32(int d, int kinds_code, const void* params,
                                    const void* v, int ldv, int b,
                                    int seg_cols, int segs, void* part,
                                    void* out, int ldo, void* stream) {
-  return tile::launch_sweep_nd<float, true>(
+  return tile::launch_sweep_nd<float>(
       d, kinds_code, (const float*)params, (const float*)pdots, m,
       (const float*)x1, n1, (const float*)x2, n2, (const float*)v, ldv, b,
       seg_cols, segs, (float*)part, (float*)out, ldo, (cudaStream_t)stream);

@@ -1,14 +1,16 @@
-// The value sweep out = K(x1, x2) @ V for B1 (the covariance matvec) and
-// B12 (the stochastic solver's row slab, x1 a pre-gathered batch of rows).
+// The value sweep out = K(x1, x2) @ V for B1 (the covariance matvec), B12
+// (the stochastic solver's row slab, x1 a pre-gathered batch of rows), and
+// on (n, d) coordinates for the separable product kinds, B8 (the product
+// matvec) and B13 (its row slab): K = prod_a k_a(x1[a] - x2[a]).
 //
-// Replaces matvec_pallas and matvec_rows_pallas
-// (repro/kernels/kernel_matvec.py) and their body _matvec_kernel.  The
-// grid is row stripes of VALUE_ROWS rows x column segments (whole tiles of
-// VALUE_COLS columns), as the tile sweeps' (tile_sweep.cuh): one segment
-// when the stripes fill the card, else a (segs, n1, b) scratch of partial
-// stripes that segments_reduce_kernel sums in a fixed order.  No atomics
-// anywhere, so every run gives the same bits.  K is never stored in device
-// memory.
+// Replaces matvec_pallas, matvec_rows_pallas, matvec_pallas_nd and
+// matvec_rows_pallas_nd (repro/kernels/kernel_matvec.py) and their bodies
+// _matvec_kernel and _matvec_kernel_nd.  The grid is row stripes of
+// VALUE_ROWS rows x column segments (whole tiles of VALUE_COLS columns), as
+// the tile sweeps' (tile_sweep.cuh): one segment when the stripes fill the
+// card, else a (segs, n1, b) scratch of partial stripes that
+// segments_reduce_kernel sums in a fixed order.  No atomics anywhere, so
+// every run gives the same bits.  K is never stored in device memory.
 //
 // What bounds it on an H100, and what the design does about it:
 //
@@ -17,7 +19,7 @@
 //   divisions).  value_narrow_kernel evaluates and contracts in registers:
 //   lane l of each warp owns rows l and l + 32 of the stripe, the block's
 //   eight warps take turns over the segment's column tiles, and for each
-//   column the x2 value and the V row are read from shared memory as a
+//   column the x2 value(s) and the V row are read from shared memory as a
 //   broadcast, k(r, c) is formed in a register and multiply-added at once
 //   into the B register accumulators of its row; it is never stored.  Each
 //   warp stages its next tile (x2 and V) with cp.async while it evaluates
@@ -47,12 +49,25 @@
 //   stripe or tile with a value beyond +-VALUE_BIG (or a nan) skips
 //   nothing.  On unsorted x few tiles are skipped and the result is the
 //   same.  The SE and Matern kinds skip nothing (an exp that underflows is
-//   no support).
+//   no support), and neither do the products (no tile skip; a k1 or k2
+//   factor is 0 before its sin and exp outside its window).
+//
+// The entry: one family is a template parameter (ValueEntry<T, KIND>,
+// x1 and x2 one coordinate each).  The products are two more "kinds",
+// VALUE_PRODUCT2 for d <= 2 (the (n, 2) points of the main path) and
+// VALUE_PRODUCT4 for d <= MAX_AXES (ProductEntry): each point carries 2 or
+// MAX_AXES coordinate registers (d of them used), each axis's family
+// is a run-time switch on a warp-uniform value (templating on the tuple of
+// families would be 6^d instantiations), and each axis's constants sit in
+// five registers (axis_consts), loaded and inverted once per block.  The
+// stages keep axis a of a tile's x2 at [a VALUE_COLS + c] (and of the wide
+// kernel's stripe at [a VALUE_ROWS + r]).
 //
 // Operation order: the sine argument stays (pi * dt) / T (tile_fns.cuh);
 // the divisions by l1 and l2 (k1, k2) and by the lengthscale (se, Matern)
-// are products with a reciprocal taken once per block (value_entry).
-// Ragged edges are masked in the kernels; nothing is padded.
+// are products with a reciprocal taken once per block (value_entry); a
+// product multiplies its factors in axis order.  Ragged edges are masked in
+// the kernels; nothing is padded.
 #pragma once
 
 #include "tile_fns.cuh"
@@ -68,10 +83,21 @@ constexpr int VALUE_COLS = 32;                  // columns per tile
 constexpr int VALUE_NARROW_MAX = 16;            // widest V in registers
 constexpr int VALUE_LIST = 256;                 // tiles per kept-tile list
 constexpr int VALUE_MAX_COLS = 512;             // V columns per launch
+// the product "kinds": d <= 2 factors (the main path's (n, 2) points) and
+// d <= MAX_AXES, each point's coordinates and constants in registers
+constexpr int VALUE_PRODUCT2 = 6;
+constexpr int VALUE_PRODUCT4 = 7;
+constexpr int AXIS_CONSTS = 5;                  // constants per product axis
 
 template <int KIND>
 __host__ __device__ constexpr bool has_support() {
   return KIND == K1 || KIND == K2;
+}
+
+// Coordinates per point.
+template <int KIND>
+__host__ __device__ constexpr int value_dims() {
+  return KIND == VALUE_PRODUCT2 ? 2 : (KIND == VALUE_PRODUCT4 ? MAX_AXES : 1);
 }
 
 // |x| <= VALUE_BIG keeps every difference of two such values finite.
@@ -158,6 +184,104 @@ __device__ __forceinline__ T value_or_zero(T dt, const T* p, const T* q) {
   return value_entry<T, KIND>(dt, p, q);
 }
 
+// One product axis's constants, laid out so that value_entry and
+// value_or_zero read them as both p and q: k1/k2 (T0, T1, 1/l1, T2, 1/l2),
+// the others (1/ell).
+template <typename T>
+__device__ __forceinline__ void axis_consts(int kind, const T* p,
+                                            T (&c)[AXIS_CONSTS]) {
+#pragma unroll
+  for (int s = 0; s < AXIS_CONSTS; ++s) c[s] = T(0);
+  if (kind == K1 || kind == K2) {
+    c[0] = p[0];
+    c[1] = p[1];
+    c[2] = T(1) / p[2];
+    if (kind == K2) {
+      c[3] = p[3];
+      c[4] = T(1) / p[4];
+    }
+  } else {
+    c[0] = T(1) / p[0];
+  }
+}
+
+// One product factor k_a(dt), its family a warp-uniform run-time value.
+template <typename T>
+__device__ __forceinline__ T axis_value(int kind, T dt,
+                                        const T (&c)[AXIS_CONSTS]) {
+  switch (kind) {
+    case K1: return value_or_zero<T, K1>(dt, c, c);
+    case K2: return value_or_zero<T, K2>(dt, c, c);
+    case SE: return value_entry<T, SE>(dt, c, c);
+    case MATERN12: return value_entry<T, MATERN12>(dt, c, c);
+    case MATERN32: return value_entry<T, MATERN32>(dt, c, c);
+    default: return value_entry<T, MATERN52>(dt, c, c);
+  }
+}
+
+// The entry k(x1, x2) of one family, its constants in registers.
+template <typename T, int KIND>
+struct ValueEntry {
+  T p[N_PARAM_SLOTS], q[N_PARAM_SLOTS];
+  __device__ __forceinline__ void load(const T* __restrict__ params, int,
+                                       int) {
+#pragma unroll
+    for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
+    value_consts<T, KIND>(p, q);
+  }
+  __device__ __forceinline__ T operator()(const T (&x1)[1],
+                                          const T (&x2)[1]) const {
+    return value_or_zero<T, KIND>(x1[0] - x2[0], p, q);
+  }
+};
+
+// The product entry prod_{a < d} k_a(x1[a] - x2[a]), d <= D; params
+// (d, 8).
+template <typename T, int D>
+struct ProductEntry {
+  T c[D][AXIS_CONSTS];
+  int d, code;
+  __device__ __forceinline__ void load(const T* __restrict__ params, int d_,
+                                       int code_) {
+    d = d_;
+    code = code_;
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      axis_consts<T>(a < d ? axis_kind(code, a) : SE,
+                     params + (a < d ? a : 0) * N_PARAM_SLOTS, c[a]);
+  }
+  __device__ __forceinline__ T operator()(const T (&x1)[D],
+                                          const T (&x2)[D]) const {
+    T k = T(1);
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      if (a < d) k *= axis_value<T>(axis_kind(code, a), x1[a] - x2[a], c[a]);
+    return k;
+  }
+};
+
+template <typename T>
+struct ValueEntry<T, VALUE_PRODUCT2> : ProductEntry<T, 2> {};
+template <typename T>
+struct ValueEntry<T, VALUE_PRODUCT4> : ProductEntry<T, MAX_AXES> {};
+
+// The lane's rows of the stripe: xr[i][a] = coordinate a of row row0 +
+// lane + 32 i (x1 row stride dd; 0 past n1 and past d).
+template <typename T, int D>
+__device__ __forceinline__ void load_stripe(const T* __restrict__ x1,
+                                            int n1, int row0, int dd, int d,
+                                            T (&xr)[VALUE_RPT][D]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < VALUE_RPT; ++i) {
+    const int r = row0 + lane + 32 * i;
+#pragma unroll
+    for (int a = 0; a < D; ++a)
+      xr[i][a] = (r < n1 && (D == 1 || a < d)) ? x1[(size_t)r * dd + a]
+                                               : T(0);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // the support skip
 // ---------------------------------------------------------------------------
@@ -172,26 +296,23 @@ __device__ __forceinline__ void warp_range(T& lo, T& hi, bool& fin) {
   fin = __all_sync(0xffffffffu, fin);
 }
 
-// The [lo, hi] of the stripe's x1 over its valid rows, and whether all of
-// them lie within +-VALUE_BIG; every warp computes the same.  xr[i] is row
-// row0 + lane + 32 i (0 past n1).
+// The [lo, hi] of the stripe's x1 over its valid rows (xr from
+// load_stripe), and whether all of them lie within +-VALUE_BIG; every warp
+// computes the same.
 template <typename T>
-__device__ __forceinline__ void stripe_range(const T* __restrict__ x1,
-                                             int n1, int row0,
-                                             T (&xr)[VALUE_RPT], T& lo,
-                                             T& hi, bool& fin) {
+__device__ __forceinline__ void stripe_range(int n1, int row0,
+                                             const T (&xr)[VALUE_RPT][1],
+                                             T& lo, T& hi, bool& fin) {
   const int lane = threadIdx.x & 31;
   lo = T(INFINITY);
   hi = T(-INFINITY);
   fin = true;
 #pragma unroll
   for (int i = 0; i < VALUE_RPT; ++i) {
-    const int r = row0 + lane + 32 * i;
-    xr[i] = r < n1 ? x1[r] : T(0);
-    if (r < n1) {
-      lo = fmin(lo, xr[i]);
-      hi = fmax(hi, xr[i]);
-      fin = fin && fabs(xr[i]) <= value_big(xr[i]);
+    if (row0 + lane + 32 * i < n1) {
+      lo = fmin(lo, xr[i][0]);
+      hi = fmax(hi, xr[i][0]);
+      fin = fin && fabs(xr[i][0]) <= value_big(xr[i][0]);
     }
   }
   warp_range(lo, hi, fin);
@@ -253,17 +374,23 @@ constexpr size_t VALUE_LIST_BYTES = sizeof(int) * (2 * VALUE_LIST + 1);
 // narrow V: evaluate and contract in registers
 // ---------------------------------------------------------------------------
 
-// One warp's stage: the x2 tile (VALUE_COLS) | its V rows (VALUE_COLS, B).
-template <typename T, int B>
+// One warp's stage: the x2 tile (D, VALUE_COLS) | its V rows (VALUE_COLS,
+// B).  x2 has row stride dd and d coordinates per point.
+template <typename T, int D, int B>
 __device__ __forceinline__ void stage_narrow(T* st,
                                              const T* __restrict__ x2,
+                                             int dd, int d,
                                              const T* __restrict__ v,
                                              int ldv, int w, int c0,
                                              int c_end) {
   const int lane = threadIdx.x & 31;
-  cp_async(st + lane, x2 + (c0 + lane < c_end ? c0 + lane : 0),
-           c0 + lane < c_end);
-  T* vs = st + VALUE_COLS;
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    const bool ok = c0 + lane < c_end && (D == 1 || a < d);
+    cp_async(st + a * VALUE_COLS + lane,
+             ok ? x2 + (size_t)(c0 + lane) * dd + a : x2, ok);
+  }
+  T* vs = st + D * VALUE_COLS;
 #pragma unroll
   for (int u = 0; u < B; ++u) {
     const int e = lane + 32 * u;  // vs[c * B + j]
@@ -274,9 +401,9 @@ __device__ __forceinline__ void stage_narrow(T* st,
   }
 }
 
-template <typename T, int B>
+template <typename T, int KIND, int B>
 constexpr size_t narrow_smem_bytes() {
-  return sizeof(T) * VALUE_WARPS * 2 * VALUE_COLS * (1 + B) +
+  return sizeof(T) * VALUE_WARPS * 2 * VALUE_COLS * (value_dims<KIND>() + B) +
          VALUE_LIST_BYTES;
 }
 
@@ -286,12 +413,15 @@ constexpr size_t narrow_smem_bytes() {
 // registers (one block per SM, no spills).
 template <typename T, int KIND, int B>
 __global__ void __launch_bounds__(VALUE_THREADS, B <= 9 ? 2 : 1)
-value_narrow_kernel(const T* __restrict__ params, const T* __restrict__ x1,
-                    int n1, const T* __restrict__ x2, int n2,
+value_narrow_kernel(int d, int code, const T* __restrict__ params,
+                    const T* __restrict__ x1, int n1,
+                    const T* __restrict__ x2, int n2,
                     const T* __restrict__ v, int ldv, int w, int seg_cols,
                     T* __restrict__ out, int ldo, size_t seg_stride) {
+  constexpr int D = value_dims<KIND>();
+  constexpr bool SUPPORT = has_support<KIND>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int STAGE = VALUE_COLS * (1 + B);
+  constexpr int STAGE = VALUE_COLS * (D + B);
   T* const smem = reinterpret_cast<T*>(smem_raw);
   int* const list =
       reinterpret_cast<int*>(smem + VALUE_WARPS * 2 * STAGE);
@@ -303,15 +433,16 @@ value_narrow_kernel(const T* __restrict__ params, const T* __restrict__ x1,
   const int c_begin = blockIdx.y * seg_cols;
   const int c_end = min(n2, c_begin + seg_cols);
   const int n_tiles = (c_end - c_begin + VALUE_COLS - 1) / VALUE_COLS;
+  const int dd = D == 1 ? 1 : d;  // the coordinates' row stride
 
-  T p[N_PARAM_SLOTS], q[N_PARAM_SLOTS];
-#pragma unroll
-  for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
-  value_consts<T, KIND>(p, q);
+  ValueEntry<T, KIND> ent;
+  ent.load(params, d, code);
 
-  T xr[VALUE_RPT], lo1, hi1;
-  bool fin1;
-  stripe_range(x1, n1, row0, xr, lo1, hi1, fin1);
+  T xr[VALUE_RPT][D];
+  load_stripe<T, D>(x1, n1, row0, dd, d, xr);
+  T lo1 = T(0), hi1 = T(0);
+  bool fin1 = false;
+  if constexpr (SUPPORT) stripe_range<T>(n1, row0, xr, lo1, hi1, fin1);
 
   T acc[VALUE_RPT][B];
 #pragma unroll
@@ -324,42 +455,45 @@ value_narrow_kernel(const T* __restrict__ params, const T* __restrict__ x1,
     const int nt = min(VALUE_LIST, n_tiles - t0);
     const int cb = c_begin + t0 * VALUE_COLS;
     int n_kept = nt;
-    if (has_support<KIND>())
+    if constexpr (SUPPORT)
       n_kept = kept_tiles(list, flags, x2, cb, c_end, nt, lo1, hi1, fin1,
-                          p[0]);
+                          ent.p[0]);
     // the first column of the k-th kept tile
     auto col = [&](int k) {
-      return cb + (has_support<KIND>() ? list[k] : k) * VALUE_COLS;
+      return cb + (SUPPORT ? list[k] : k) * VALUE_COLS;
     };
     // warp w takes the kept tiles w, w + VALUE_WARPS, ...
     int k = warp;
-    if (k < n_kept) stage_narrow<T, B>(st, x2, v, ldv, w, col(k), c_end);
+    if (k < n_kept)
+      stage_narrow<T, D, B>(st, x2, dd, d, v, ldv, w, col(k), c_end);
     cp_async_commit();
     for (int s = 0; k < n_kept; k += VALUE_WARPS, s ^= 1) {
       const int kn = k + VALUE_WARPS;
       if (kn < n_kept)
-        stage_narrow<T, B>(st + (s ^ 1) * STAGE, x2, v, ldv, w, col(kn),
-                           c_end);
+        stage_narrow<T, D, B>(st + (s ^ 1) * STAGE, x2, dd, d, v, ldv, w,
+                              col(kn), c_end);
       cp_async_commit();  // possibly empty: wait<1> then covers tile k
       cp_async_wait<1>();
       __syncwarp();
       const T* xs = st + s * STAGE;
-      const T* vs = xs + VALUE_COLS;
+      const T* vs = xs + D * VALUE_COLS;
       const int c0 = col(k);
       const int nc = min(VALUE_COLS, c_end - c0);
 #pragma unroll 2
       for (int c = 0; c < nc; ++c) {
-        const T xc = xs[c];
+        T xc[D];
+#pragma unroll
+        for (int a = 0; a < D; ++a) xc[a] = xs[a * VALUE_COLS + c];
 #pragma unroll
         for (int i = 0; i < VALUE_RPT; ++i) {
-          const T kv = value_or_zero<T, KIND>(xr[i] - xc, p, q);
+          const T kv = ent(xr[i], xc);
 #pragma unroll
           for (int j = 0; j < B; ++j) acc[i][j] += kv * vs[c * B + j];
         }
       }
       __syncwarp();
     }
-    if (has_support<KIND>()) __syncthreads();  // list reused next chunk
+    if constexpr (SUPPORT) __syncthreads();  // list reused next chunk
   }
 
   // the warps' partial stripes, summed in warp order: red[(g B + j) ROWS
@@ -417,36 +551,43 @@ __device__ __forceinline__ void mma884(float (&c)[2], float a, float b) {
   }
 }
 
-// Shared layout of the wide kernel, in elements: x1 stripe (VALUE_ROWS) |
-// K tile (VALUE_ROWS, KS) | 2 stages of x2 tile (VALUE_COLS) + V tile
-// (VALUE_COLS, VS) | the kept-tile list.  KS and VS are padded so that
-// the A and B fragment loads are free of bank conflicts.
-template <int NB>
+// Shared layout of the wide kernel, in elements: x1 stripe (D,
+// VALUE_ROWS) | K tile (VALUE_ROWS, KS) | 2 stages of x2 tile (D,
+// VALUE_COLS) + V tile (VALUE_COLS, VS) | the kept-tile list.  KS and VS
+// are padded so that the A and B fragment loads are free of bank
+// conflicts.
+template <int NB, int D>
 struct WideLayout {
   static constexpr int VW = 32 * NB;
   static constexpr int KS = VALUE_COLS + 4;
   static constexpr int VS = VW + 4;
-  static constexpr int STAGE = VALUE_COLS + VALUE_COLS * VS;
-  static constexpr int ELEMS = VALUE_ROWS + VALUE_ROWS * KS + 2 * STAGE;
+  static constexpr int XS = D * VALUE_COLS;
+  static constexpr int STAGE = XS + VALUE_COLS * VS;
+  static constexpr int ELEMS = D * VALUE_ROWS + VALUE_ROWS * KS + 2 * STAGE;
 };
 
-template <typename T, int NB>
+template <typename T, int KIND, int NB>
 constexpr size_t wide_smem_bytes() {
-  return sizeof(T) * WideLayout<NB>::ELEMS + VALUE_LIST_BYTES;
+  return sizeof(T) * WideLayout<NB, value_dims<KIND>()>::ELEMS +
+         VALUE_LIST_BYTES;
 }
 
 // The block's stage: x2 tile and V rows c0 .. c0 + VALUE_COLS, columns
 // 0 .. wz of v (already offset to the block's first column).
-template <typename T, int NB>
+template <typename T, int NB, int D>
 __device__ __forceinline__ void stage_wide(T* st, const T* __restrict__ x2,
+                                           int dd, int d,
                                            const T* __restrict__ v, int ldv,
                                            int wz, int c0, int c_end) {
-  using L = WideLayout<NB>;
+  using L = WideLayout<NB, D>;
   const int tid = threadIdx.x;
-  if (tid < VALUE_COLS)
-    cp_async(st + tid, x2 + (c0 + tid < c_end ? c0 + tid : 0),
-             c0 + tid < c_end);
-  T* vs = st + VALUE_COLS;
+  if (tid < L::XS) {
+    const int a = tid / VALUE_COLS;
+    const int c = tid % VALUE_COLS;
+    const bool ok = c0 + c < c_end && (D == 1 || a < d);
+    cp_async(st + tid, ok ? x2 + (size_t)(c0 + c) * dd + a : x2, ok);
+  }
+  T* vs = st + L::XS;
 #pragma unroll
   for (int u = 0; u < VALUE_COLS * L::VW / VALUE_THREADS; ++u) {
     const int e = tid + VALUE_THREADS * u;
@@ -462,14 +603,17 @@ __device__ __forceinline__ void stage_wide(T* st, const T* __restrict__ x2,
 // overlaps the other's contraction.
 template <typename T, int KIND, int NB>
 __global__ void __launch_bounds__(VALUE_THREADS, 2)
-value_wide_kernel(const T* __restrict__ params, const T* __restrict__ x1,
-                  int n1, const T* __restrict__ x2, int n2,
+value_wide_kernel(int d, int code, const T* __restrict__ params,
+                  const T* __restrict__ x1, int n1,
+                  const T* __restrict__ x2, int n2,
                   const T* __restrict__ v, int ldv, int w, int seg_cols,
                   T* __restrict__ out, int ldo, size_t seg_stride) {
-  using L = WideLayout<NB>;
+  constexpr int D = value_dims<KIND>();
+  constexpr bool SUPPORT = has_support<KIND>();
+  using L = WideLayout<NB, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const xs1 = reinterpret_cast<T*>(smem_raw);
-  T* const ks = xs1 + VALUE_ROWS;
+  T* const ks = xs1 + D * VALUE_ROWS;
   T* const stages = ks + VALUE_ROWS * L::KS;
   int* const list = reinterpret_cast<int*>(stages + 2 * L::STAGE);
   int* const flags = list + VALUE_LIST;
@@ -485,19 +629,23 @@ value_wide_kernel(const T* __restrict__ params, const T* __restrict__ x1,
   const int n_tiles = (c_end - c_begin + VALUE_COLS - 1) / VALUE_COLS;
   const int j_base = blockIdx.z * L::VW;
   const int wz = min(L::VW, w - j_base);
+  const int dd = D == 1 ? 1 : d;
   v += j_base;
 
-  T p[N_PARAM_SLOTS], q[N_PARAM_SLOTS];
-#pragma unroll
-  for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
-  value_consts<T, KIND>(p, q);
+  ValueEntry<T, KIND> ent;
+  ent.load(params, d, code);
 
-  T xr[VALUE_RPT], lo1, hi1;
-  bool fin1;
-  stripe_range(x1, n1, row0, xr, lo1, hi1, fin1);
+  T xr[VALUE_RPT][D];
+  load_stripe<T, D>(x1, n1, row0, dd, d, xr);
+  T lo1 = T(0), hi1 = T(0);
+  bool fin1 = false;
+  if constexpr (SUPPORT) stripe_range<T>(n1, row0, xr, lo1, hi1, fin1);
   if (warp == 0) {
 #pragma unroll
-    for (int i = 0; i < VALUE_RPT; ++i) xs1[lane + 32 * i] = xr[i];
+    for (int i = 0; i < VALUE_RPT; ++i)
+#pragma unroll
+      for (int a = 0; a < D; ++a)
+        xs1[a * VALUE_ROWS + lane + 32 * i] = xr[i][a];
   }
 
   // warp (wr, wc) owns output rows 32 wr .. + 32 and columns
@@ -514,31 +662,37 @@ value_wide_kernel(const T* __restrict__ params, const T* __restrict__ x1,
     const int nt = min(VALUE_LIST, n_tiles - t0);
     const int cb = c_begin + t0 * VALUE_COLS;
     int n_kept = nt;
-    if (has_support<KIND>())
+    if constexpr (SUPPORT)
       n_kept = kept_tiles(list, flags, x2, cb, c_end, nt, lo1, hi1, fin1,
-                          p[0]);
+                          ent.p[0]);
     auto col = [&](int k) {
-      return cb + (has_support<KIND>() ? list[k] : k) * VALUE_COLS;
+      return cb + (SUPPORT ? list[k] : k) * VALUE_COLS;
     };
-    if (n_kept > 0) stage_wide<T, NB>(stages, x2, v, ldv, wz, col(0), c_end);
+    if (n_kept > 0)
+      stage_wide<T, NB, D>(stages, x2, dd, d, v, ldv, wz, col(0), c_end);
     cp_async_commit();
     for (int k = 0; k < n_kept; ++k) {
       if (k + 1 < n_kept)
-        stage_wide<T, NB>(stages + ((k + 1) & 1) * L::STAGE, x2, v, ldv, wz,
-                          col(k + 1), c_end);
+        stage_wide<T, NB, D>(stages + ((k + 1) & 1) * L::STAGE, x2, dd, d,
+                             v, ldv, wz, col(k + 1), c_end);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();  // tile k staged by every thread; xs1 written
       const T* xs2 = stages + (k & 1) * L::STAGE;
-      const T* vs = xs2 + VALUE_COLS;
+      const T* vs = xs2 + L::XS;
       const int c0 = col(k);
+      T xc[D];
+#pragma unroll
+      for (int a = 0; a < D; ++a) xc[a] = xs2[a * VALUE_COLS + lane];
       // evaluate the 64 x 32 tile: thread (warp, lane) rows warp + 8 u
 #pragma unroll 2
       for (int u = 0; u < VALUE_ROWS / VALUE_WARPS; ++u) {
         const int r = warp + VALUE_WARPS * u;
         const bool ok = row0 + r < n1 && c0 + lane < c_end;
-        ks[r * L::KS + lane] =
-            ok ? value_or_zero<T, KIND>(xs1[r] - xs2[lane], p, q) : T(0);
+        T xa[D];
+#pragma unroll
+        for (int a = 0; a < D; ++a) xa[a] = xs1[a * VALUE_ROWS + r];
+        ks[r * L::KS + lane] = ok ? ent(xa, xc) : T(0);
       }
       __syncthreads();
 #pragma unroll
@@ -557,7 +711,7 @@ value_wide_kernel(const T* __restrict__ params, const T* __restrict__ x1,
       }
       __syncthreads();  // ks and this stage are rewritten next
     }
-    if (has_support<KIND>()) __syncthreads();
+    if constexpr (SUPPORT) __syncthreads();
   }
   cp_async_wait<0>();
 
@@ -593,66 +747,70 @@ inline bool value_split_ok(int n2, int seg_cols, int segs, const void* part) {
 }
 
 template <typename T, typename Kernel>
-static int launch_value(Kernel fn, size_t smem, dim3 grid, const T* params,
-                        const T* x1, int n1, const T* x2, int n2, const T* v,
-                        int ldv, int w, int seg_cols, int segs, T* part,
-                        T* out, int ldo, cudaStream_t stream) {
+static int launch_value(Kernel fn, size_t smem, dim3 grid, int d, int code,
+                        const T* params, const T* x1, int n1, const T* x2,
+                        int n2, const T* v, int ldv, int w, int seg_cols,
+                        int segs, T* part, T* out, int ldo,
+                        cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return launch_split<T>(
       [&](T* dst, int ldd, size_t seg_stride) {
-        fn<<<grid, VALUE_THREADS, smem, stream>>>(params, x1, n1, x2, n2, v,
-                                                  ldv, w, seg_cols, dst, ldd,
+        fn<<<grid, VALUE_THREADS, smem, stream>>>(d, code, params, x1, n1,
+                                                  x2, n2, v, ldv, w,
+                                                  seg_cols, dst, ldd,
                                                   seg_stride);
       },
       1, n1, w, segs, part, out, ldo, stream);
 }
 
-#define VALUE_ARGS params, x1, n1, x2, n2, v, ldv, w, seg_cols, segs, part, \
-    out, ldo, stream
+#define VALUE_ARGS d, code, params, x1, n1, x2, n2, v, ldv, w, seg_cols, \
+    segs, part, out, ldo, stream
+#define VALUE_PARAMS int d, int code, const T *params, const T *x1, int n1, \
+    const T *x2, int n2, const T *v, int ldv, int w, int seg_cols,        \
+    int segs, T *part, T *out, int ldo, cudaStream_t stream
 
 template <typename T, int KIND, int B>
-static int launch_narrow(const T* params, const T* x1, int n1, const T* x2,
-                         int n2, const T* v, int ldv, int w, int seg_cols,
-                         int segs, T* part, T* out, int ldo,
-                         cudaStream_t stream) {
+static int launch_narrow(VALUE_PARAMS) {
   const dim3 grid((n1 + VALUE_ROWS - 1) / VALUE_ROWS, segs);
   return launch_value<T>(value_narrow_kernel<T, KIND, B>,
-                         narrow_smem_bytes<T, B>(), grid, VALUE_ARGS);
+                         narrow_smem_bytes<T, KIND, B>(), grid, VALUE_ARGS);
 }
 
 template <typename T, int KIND, int NB>
-static int launch_wide(const T* params, const T* x1, int n1, const T* x2,
-                       int n2, const T* v, int ldv, int w, int seg_cols,
-                       int segs, T* part, T* out, int ldo,
-                       cudaStream_t stream) {
+static int launch_wide(VALUE_PARAMS) {
   const dim3 grid((n1 + VALUE_ROWS - 1) / VALUE_ROWS, segs,
                   (w + 32 * NB - 1) / (32 * NB));
   return launch_value<T>(value_wide_kernel<T, KIND, NB>,
-                         wide_smem_bytes<T, NB>(), grid, VALUE_ARGS);
+                         wide_smem_bytes<T, KIND, NB>(), grid, VALUE_ARGS);
 }
 
 // Narrow widths 1 (value-only CG), 4, 8 (Lanczos), 9 (the training CG's
 // 1 + 8 probes) and 16; wide ones in 32, 64 or 128 columns per block.
-// Each width is one more kernel per kind and type for nvcc to build.
+// Each width is one more kernel per kind and type for nvcc to build, so
+// the products of 3 and 4 factors, which no workflow path runs, take one
+// narrow width (16) and one wide (128 columns), their tails masked.
 template <typename T, int KIND>
-static int launch_value_kind(const T* params, const T* x1, int n1,
-                             const T* x2, int n2, const T* v, int ldv, int w,
-                             int seg_cols, int segs, T* part, T* out, int ldo,
-                             cudaStream_t stream) {
-  if (w <= 1) return launch_narrow<T, KIND, 1>(VALUE_ARGS);
-  if (w <= 4) return launch_narrow<T, KIND, 4>(VALUE_ARGS);
-  if (w <= 8) return launch_narrow<T, KIND, 8>(VALUE_ARGS);
-  if (w <= 9) return launch_narrow<T, KIND, 9>(VALUE_ARGS);
-  if (w <= VALUE_NARROW_MAX) return launch_narrow<T, KIND, 16>(VALUE_ARGS);
-  if (w <= 32) return launch_wide<T, KIND, 1>(VALUE_ARGS);
-  if (w <= 64) return launch_wide<T, KIND, 2>(VALUE_ARGS);
-  return launch_wide<T, KIND, 4>(VALUE_ARGS);
+static int launch_value_kind(VALUE_PARAMS) {
+  if constexpr (KIND == VALUE_PRODUCT4) {
+    if (w <= VALUE_NARROW_MAX) return launch_narrow<T, KIND, 16>(VALUE_ARGS);
+    return launch_wide<T, KIND, 4>(VALUE_ARGS);
+  } else {
+    if (w <= 1) return launch_narrow<T, KIND, 1>(VALUE_ARGS);
+    if (w <= 4) return launch_narrow<T, KIND, 4>(VALUE_ARGS);
+    if (w <= 8) return launch_narrow<T, KIND, 8>(VALUE_ARGS);
+    if (w <= 9) return launch_narrow<T, KIND, 9>(VALUE_ARGS);
+    if (w <= VALUE_NARROW_MAX)
+      return launch_narrow<T, KIND, 16>(VALUE_ARGS);
+    if (w <= 32) return launch_wide<T, KIND, 1>(VALUE_ARGS);
+    if (w <= 64) return launch_wide<T, KIND, 2>(VALUE_ARGS);
+    return launch_wide<T, KIND, 4>(VALUE_ARGS);
+  }
 }
 
-// out (n1, ldo) = K(x1, x2) @ v[:, :w] (v (n2, ldv)); part: the (segs, n1,
-// w) scratch, unused (may be null) when segs == 1.
+// out (n1, ldo) = K(x1, x2) @ v[:, :w] (v (n2, ldv)) for one family; part:
+// the (segs, n1, w) scratch, unused (may be null) when segs == 1.
 template <typename T>
 static int launch_value_sweep(int kind, const T* params, const T* x1, int n1,
                               const T* x2, int n2, const T* v, int ldv, int w,
@@ -661,6 +819,7 @@ static int launch_value_sweep(int kind, const T* params, const T* x1, int n1,
   if (n1 <= 0 || w <= 0 || w > VALUE_MAX_COLS ||
       !value_split_ok(n2, seg_cols, segs, part))
     return (int)cudaErrorInvalidValue;
+  const int d = 1, code = 0;
   switch (kind) {
     case K1: return launch_value_kind<T, K1>(VALUE_ARGS);
     case K2: return launch_value_kind<T, K2>(VALUE_ARGS);
@@ -672,6 +831,21 @@ static int launch_value_sweep(int kind, const T* params, const T* x1, int n1,
   }
 }
 
+// The same for the separable product of d <= MAX_AXES families (code: the
+// family of axis a in bits 4a, params (d, N_PARAM_SLOTS)) on x1 (n1, d)
+// and x2 (n2, d).
+template <typename T>
+static int launch_value_product(VALUE_PARAMS) {
+  if (d < 1 || d > MAX_AXES || n1 <= 0 || w <= 0 || w > VALUE_MAX_COLS ||
+      !value_split_ok(n2, seg_cols, segs, part))
+    return (int)cudaErrorInvalidValue;
+  for (int a = 0; a < d; ++a)
+    if (axis_kind(code, a) > MATERN52) return (int)cudaErrorInvalidValue;
+  if (d <= 2) return launch_value_kind<T, VALUE_PRODUCT2>(VALUE_ARGS);
+  return launch_value_kind<T, VALUE_PRODUCT4>(VALUE_ARGS);
+}
+
 #undef VALUE_ARGS
+#undef VALUE_PARAMS
 
 }  // namespace tile

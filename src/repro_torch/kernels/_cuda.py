@@ -28,10 +28,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
            "tile_jvp.cu", "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu",
-           "ski_bank.cu", "tile_matvec_nd.cu", "tile_tangent_nd.cu",
-           "ski_gram_2d.cu", "ski_tangent_2d.cu")
+           "ski_bank.cu", "tile_matvec_nd.cu", "tile_matvec_nd_f32.cu",
+           "tile_tangent_nd.cu", "ski_gram_2d.cu", "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
-           "tile_sweep_nd.cuh", "ski_fft.cuh", "ski_fft_2d.cuh")
+           "tile_sweep_nd.cuh", "ski_fft.cuh", "ski_fft_2d.cuh",
+           "ski_lines_2d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -98,12 +99,17 @@ for _name in ("ski_gram_f64", "ski_tangent_f64", "ski_bank_f64"):
     _SIGNATURES[_name] = ([_INT] * 5 + [_VOID] * 4 + [_INT, _DOUBLE, _VOID,
                                                       _INT, _INT]
                           + [_VOID] * 4)
-# the two 2-D SKI kernels share one signature: (n, m1, m2, L1, L2, s,
-# offs, occ, wcell, cell, lam1, lam2, m_dirs, noise2, v, c, out, scratch0,
-# scratch1, stream)
-for _name in ("ski_gram_2d_f64", "ski_tangent_2d_f64"):
-    _SIGNATURES[_name] = ([_INT] * 6 + [_VOID] * 6 + [_INT, _DOUBLE, _VOID,
-                                                      _INT] + [_VOID] * 4)
+# B11: (n, m1, m2, L1, L2, s, offs, occ, wcell, cell, lam1, lam2, m_dirs,
+# noise2, v, c, out, scratch0, scratch1, stream); B10 the same without
+# m_dirs and with its line plan (cap, row_tpl, row_lpb, col_tpl, col_lpb)
+# before the stream
+_SIGNATURES["ski_tangent_2d_f64"] = ([_INT] * 6 + [_VOID] * 6
+                                     + [_INT, _DOUBLE, _VOID, _INT]
+                                     + [_VOID] * 4)
+_SIGNATURES["ski_gram_2d_f64"] = ([_INT] * 6 + [_VOID] * 6
+                                  + [_DOUBLE, _VOID, _INT] + [_VOID] * 3
+                                  + [_INT] * 5 + [_VOID])
+_SIGNATURES["ski_gram_2d_line_cap"] = [_INT]
 for _name in list(_SIGNATURES):
     if _name.endswith("_f64"):
         _SIGNATURES[_name[:-4] + "_f32"] = _SIGNATURES[_name]

@@ -7,12 +7,13 @@ Counterparts of ``matvec_pallas``, ``matvec_stacked_tangent_pallas``,
 ``matvec_tangent_pallas``, ``matvec_pallas_nd``,
 ``matvec_stacked_tangent_pallas_nd``, ``matvec_rows_pallas`` and
 ``matvec_rows_pallas_nd`` in ``repro/kernels/kernel_matvec.py``.  K is
-never stored.  B1 and B12 (``csrc/tile_matvec.cu``) run the value sweep of
-``csrc/value_sweep.cuh``: k evaluated and contracted in registers for
-b <= 16, on the fp64 tensor cores above, and, for k1 and k2, every tile
-outside the Wendland window skipped (:func:`support_tiles` is the rule's
-twin here).  The other sweeps (``csrc/tile_tangent.cu``,
-``csrc/tile_jvp.cu``, ``csrc/tile_matvec_nd.cu`` for B8 and B13,
+never stored.  B1 and B12 (``csrc/tile_matvec.cu``), and on (n, d)
+coordinates B8 and B13 (``csrc/tile_matvec_nd.cu``, the product entry),
+run the value sweep of ``csrc/value_sweep.cuh``: k evaluated and
+contracted in registers for b <= 16, on the fp64 tensor cores above, and,
+for k1 and k2 alone, every tile outside the Wendland window skipped
+(:func:`support_tiles` is the rule's twin here).  The tangent sweeps
+(``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``,
 ``csrc/tile_tangent_nd.cu``) evaluate each tile in shared memory and
 contract it with V there; see ``csrc/tile_sweep.cuh`` and
 ``csrc/tile_sweep_nd.cuh``.  All run on a grid of row stripes x column
@@ -34,13 +35,14 @@ from .ref import (N_PARAM_SLOTS, N_SLOTS, matrix_ref, product_matrix_ref,
                   product_tangent_matrices_ref, tangent_matrices_ref)
 
 ROW_CHUNK = 1024  # rows per dense block in the plain versions
-# the tile sweeps' grid (csrc/tile_sweep.cuh, B2, B3, B8, B9, B13):
+# the tile sweeps' grid (csrc/tile_sweep.cuh, B2, B3, B9):
 # stripes of SWEEP_ROWS rows, column tiles of SWEEP_COLS, and enough
 # column segments for ROWS_BLOCKS_PER_SM blocks on each SM
 SWEEP_ROWS = 32
 SWEEP_COLS = 64
 ROWS_BLOCKS_PER_SM = 4
-# the value sweep's (csrc/value_sweep.cuh, B1 and B12): 64-row stripes,
+# the value sweep's (csrc/value_sweep.cuh, B1, B8, B12 and B13): 64-row
+# stripes,
 # 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM (two are
 # resident; more segments spread the few tiles a Wendland window keeps
 # over more blocks), and at least one tile for each of a block's
@@ -56,8 +58,8 @@ VALUE_GRID = (VALUE_ROWS, VALUE_COLS, VALUE_BLOCKS_PER_SM, VALUE_WARPS)
 MAX_GRID_Y = 65535
 # |x| <= VALUE_BIG[dtype] keeps every difference finite (value_big)
 VALUE_BIG = {torch.float64: 8.0e307, torch.float32: 1.7e38}
-# the product kernels take up to MAX_AXES factors and MAX_DIRS_ND
-# tangent directions (csrc/tile_sweep_nd.cuh)
+# the product kernels take up to MAX_AXES factors (csrc/tile_fns.cuh) and
+# MAX_DIRS_ND tangent directions (csrc/tile_sweep_nd.cuh)
 MAX_AXES = 4
 MAX_DIRS_ND = 10
 
@@ -321,8 +323,8 @@ def tile_matvec_nd(kinds, params, x1, x2, v):
     if dev.type == "cpu":
         return tile_matvec_nd_plain(kinds, params, x1, x2, v)
     return _launch_sweep("tile_matvec_nd", (len(kinds), _kinds_code(kinds)),
-                         ("tile_nd_max_cols", 1, len(kinds)), params, None,
-                         x1, x2, v)
+                         ("tile_matvec_max_cols",), params, None, x1, x2, v,
+                         grid=VALUE_GRID)
 
 
 def tile_stacked_tangent_matvec_nd_plain(kinds, params, pdots, x1, x2, v,
@@ -368,7 +370,7 @@ def row_segments(n1: int, n2: int, sms: int, grid=SWEEP_GRID):
     whole ``cols`` tiles, as many as bring the ceil(n1 / rows) row stripes
     to ``per_sm`` blocks per SM (never more than the tiles / ``min_tiles``;
     one when the stripes alone do), covering n2 exactly.  SWEEP_GRID is
-    the tile sweeps'; B1 and B12 take VALUE_GRID."""
+    the tile sweeps'; B1, B8, B12 and B13 take VALUE_GRID."""
     rows, cols, per_sm, min_tiles = grid
     stripes = -(-n1 // rows)
     tiles = -(-n2 // cols)
@@ -399,5 +401,5 @@ def tile_matvec_rows_nd(kinds, params, rows_x, x2, v):
     if dev.type == "cpu":
         return tile_matvec_nd_plain(kinds, params, rows_x, x2, v)
     return _launch_sweep("tile_matvec_nd", (len(kinds), _kinds_code(kinds)),
-                         ("tile_nd_max_cols", 1, len(kinds)), params, None,
-                         rows_x, x2, v, count="tile_rows_nd")
+                         ("tile_matvec_max_cols",), params, None, rows_x, x2,
+                         v, count="tile_rows_nd", grid=VALUE_GRID)

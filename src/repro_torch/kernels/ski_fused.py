@@ -23,10 +23,18 @@ frequency order, so nothing is permuted.
 
 On a 2-D product grid (m1 x m2 cells, flat row-major) the same sandwich
 runs with the outer product of two axis spectra, lam1 (L1,) and lam2
-(L2,), each a power-of-two embedding of its axis's first column
-(``csrc/ski_gram_2d.cu``, ``csrc/ski_tangent_2d.cu``, FFT passes in
-``csrc/ski_fft_2d.cuh``); the joint stencil's s1 s2 flat offsets
-d1 m2 + d2 travel as an explicit list.
+(L2,), each a power-of-two embedding of its axis's first column; the
+joint stencil's s1 s2 flat offsets d1 m2 + d2 travel as an explicit
+list.  B11 (``csrc/ski_tangent_2d.cu``) runs whole-plane FFT passes
+(``csrc/ski_fft_2d.cuh``).  B10 (``csrc/ski_gram_2d.cu``,
+``csrc/ski_lines_2d.cuh``) uses that the outer-product spectrum makes the
+2-D circulant a product of two axis circulants: W^T with the axis-1
+convolution of the m1 occupied rows, then the axis-0 convolution of the
+m2 columns, each line transformed in shared memory, then W: three
+launches, one compact scratch (:func:`gram_2d_plan`; an axis longer than
+the shared-memory line cap takes the global passes).
+:func:`fused_gram_matvec_nd_pruned` is that order on ``torch.fft``, for
+the tests.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -35,7 +43,8 @@ The plain versions are the unfused composition on ``torch.fft``.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -506,14 +515,14 @@ def _check_2d(geom: FusedSKIGeometry2D, lams, v):
 
 def fused_gram_matvec_nd(geom: FusedSKIGeometry2D, lams, noise2: float, v):
     """B10: (W K_kron W^T + noise2 I) v on a 2-D product grid, v (n, b)
-    -> (n, b), one launch.  ``lams`` = (lam1 (L1,), lam2 (L2,)) from
+    -> (n, b), one call (three launches at the cell's shape: see
+    :func:`gram_2d_plan`).  ``lams`` = (lam1 (L1,), lam2 (L2,)) from
     :func:`spectrum_nd`."""
     lams2 = (lams[0][None], lams[1][None])
     dev = _check_2d(geom, lams2, v)
     if dev.type == "cpu":
         return fused_gram_matvec_nd_plain(geom, lams, noise2, v)
-    return _launch_2d("ski_gram_2d", geom, lams2, noise2, v,
-                      torch.empty_like(v), m_dirs=1)
+    return _launch_gram_2d(geom, lams, noise2, v)
 
 
 def fused_tangent_matvecs_nd(geom: FusedSKIGeometry2D, lam_pairs, v):
@@ -529,7 +538,7 @@ def fused_tangent_matvecs_nd(geom: FusedSKIGeometry2D, lam_pairs, v):
 
 
 def _launch_2d(name, geom, lams, noise2, v, out, *, m_dirs):
-    """One launch of B10 or B11 into ``out``."""
+    """One launch of B11 into ``out``."""
     if out.numel() == 0:
         return out
     t = geom.tensors(v.device, v.dtype)
@@ -549,3 +558,167 @@ def _launch_2d(name, geom, lams, noise2, v, out, *, m_dirs):
                _cuda.stream_ptr(v.device))
     _cuda.LAUNCHES[name] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# B10's plan: shared-memory line transforms over the occupied lines
+# ---------------------------------------------------------------------------
+
+# csrc/ski_lines_2d.cuh: a line kernel's block takes lpb lines of tpl
+# threads each; LINE_THREADS threads per block when the lines allow, at
+# most LINE_TPL threads per line, and lpb cut until the block's shared
+# memory is at most LINE_SMEM_TARGET (two blocks per SM) unless one line
+# alone needs more (up to LINE_SMEM_LIMIT, the opt-in limit per block)
+LINE_THREADS = 256
+LINE_TPL = 128
+LINE_SMEM_TARGET = 96 * 1024
+LINE_SMEM_LIMIT = 232448
+
+
+class Gram2DPlan(NamedTuple):
+    """How B10 runs one call (csrc/ski_lines_2d.cuh).
+
+    cap:     the longest line transformed in shared memory; an axis with
+             L_a <= cap takes its line kernel, a longer one the global
+             Stockham passes.
+    rows:    (tpl, lpb) of the axis-1 line kernel (W^T + the row
+             convolutions over the m1 occupied rows).
+    cols:    (tpl, lpb) of the axis-0 line kernel (the m2 columns).
+    scratch: complex values of each of the two scratch buffers (the second
+             0 when both axes take their line kernels).
+    launches: kernel launches per call.
+    """
+    cap: int
+    rows: tuple
+    cols: tuple
+    scratch: tuple
+    launches: int
+
+
+def line_smem_bytes(L: int, lines: int, itemsize: int) -> int:
+    """Shared bytes of a line kernel: the L twiddles and 2 lines of L + 1
+    complex values per line."""
+    return 2 * itemsize * (L + 2 * lines * (L + 1))
+
+
+def line_cap(itemsize: int) -> int:
+    """The longest power-of-two line one block holds (4096 in float64,
+    8192 in float32): the C side's ``ski_gram_2d_line_cap``, which
+    refuses a plan whose lines do not fit."""
+    L = 2
+    while line_smem_bytes(2 * L, 1, itemsize) <= LINE_SMEM_LIMIT:
+        L *= 2
+    return L
+
+
+def line_kernel_plan(L: int, lines: int, itemsize: int) -> tuple:
+    """(tpl, lpb) of a line kernel on ``lines`` lines of length L: L / 4
+    threads per line (one radix-4 butterfly each) up to LINE_TPL, as many
+    lines per block as make LINE_THREADS threads, no more than the lines
+    (rounded up to a power of two), and halved until the block fits
+    LINE_SMEM_TARGET."""
+    tpl = min(max(L // 4, 1), LINE_TPL)
+    lpb = max(LINE_THREADS // tpl, 1)
+    lpb = min(lpb, 1 << max(int(lines) - 1, 0).bit_length())
+    while lpb > 1 and line_smem_bytes(L, lpb, itemsize) > LINE_SMEM_TARGET:
+        lpb //= 2
+    return tpl, lpb
+
+
+@functools.lru_cache(maxsize=256)
+def gram_2d_plan(shape, Ls, b: int, itemsize: int,
+                 cap: Optional[int] = None) -> Gram2DPlan:
+    """B10's plan for b columns on the (m1, m2) cells in (L1, L2) planes.
+
+    Stage 1 writes the (P, m1, ld) rows (P = ceil(b / 2) packed columns):
+    ld = m2 from the line kernel; ld = L2 from the global passes, which
+    ping-pong between two (P, m1, L2) buffers.  Stage 2 works in place from
+    its line kernel; its global passes pad the rows into (P, L1, m2) and
+    ping-pong between the two buffers.  Each buffer is sized for the
+    largest of these that the call takes."""
+    (m1, m2), (L1, L2) = shape, Ls
+    P = (int(b) + 1) // 2
+    cap = line_cap(itemsize) if cap is None else min(int(cap),
+                                                    line_cap(itemsize))
+    rows_shared, cols_shared = L2 <= cap, L1 <= cap
+    if rows_shared:
+        buf = [P * m1 * m2, 0]
+    else:
+        buf = [P * m1 * L2, P * m1 * L2]
+    if not cols_shared:
+        buf = [max(x, P * L1 * m2) for x in buf]
+    launches = ((1 if rows_shared else 1 + 2 * _passes(L2))
+                + (1 if cols_shared else 1 + 2 * _passes(L1)) + 1)
+    return Gram2DPlan(cap, line_kernel_plan(L2, m1, itemsize),
+                      line_kernel_plan(L1, m2, itemsize), tuple(buf),
+                      launches)
+
+
+def _passes(L: int) -> int:
+    """Stockham passes of one global-memory transform of length L (radix
+    4, one radix-2 pass first when log2 L is odd)."""
+    lg = int(L).bit_length() - 1
+    return lg // 2 + (lg & 1)
+
+
+def _launch_gram_2d(geom, lams, noise2, v, line_cap_arg=None):
+    """B10 on the card: the plan's scratch (one allocation), one C call.
+    Every CG and Lanczos iteration on a gappy field makes this call, so
+    the host work is kept to a cached plan and one allocation.
+    ``line_cap_arg`` lowers the card's line cap (the card tests put a
+    small geometry on the global-pass branch with it)."""
+    out = torch.empty_like(v)
+    if out.numel() == 0:
+        return out
+    t = geom.tensors(v.device, v.dtype)
+    c = int(v.shape[1])
+    itemsize = v.element_size()
+    plan = gram_2d_plan(geom.shape, geom.Ls, c, itemsize, line_cap_arg)
+    s0, s1 = plan.scratch
+    scratch = torch.empty((s0 + max(s1, 1), 2), dtype=v.dtype,
+                          device=v.device)
+    base = scratch.data_ptr()
+    _cuda.call(f"ski_gram_2d_{_cuda.dtype_suffix(v.dtype)}",
+               int(v.shape[0]), geom.shape[0], geom.shape[1], *geom.Ls,
+               len(geom.offs), t["offs"].data_ptr(), t["occ"].data_ptr(),
+               t["wcell"].data_ptr(), t["cell"].data_ptr(),
+               lams[0].data_ptr(), lams[1].data_ptr(), float(noise2),
+               v.data_ptr(), c, out.data_ptr(), base,
+               base + 2 * itemsize * s0, plan.cap, *plan.rows, *plan.cols,
+               _cuda.stream_ptr(v.device))
+    _cuda.LAUNCHES["ski_gram_2d"] += 1
+    return out
+
+
+def _grid_conv_2d_pruned(geom, lam1, lam2, u):
+    """The 2-D convolution of :func:`_grid_conv_2d_plain` in B10's order
+    (csrc/ski_lines_2d.cuh): two real columns packed in one complex column
+    (a zero half for an odd b), the axis-1 convolution of the m1 occupied
+    rows alone cropped to m2, then the axis-0 convolution of the m2
+    columns cropped to m1.  The spectrum is an outer product, so the 2-D
+    circulant is the product of the two axis circulants and the crops
+    commute with it."""
+    (m1, m2), (L1, L2) = geom.shape, geom.Ls
+    b = u.shape[1]
+    U = u.reshape(m1, m2, b)
+    if b % 2:
+        U = torch.cat([U, U.new_zeros((m1, m2, 1))], dim=2)
+    Z = torch.complex(U[..., 0::2], U[..., 1::2])
+    Z = torch.fft.ifft(lam2[None, :, None] * torch.fft.fft(Z, n=L2, dim=1),
+                       dim=1, norm="forward")[:, :m2]
+    Z = torch.fft.ifft(lam1[:, None, None] * torch.fft.fft(Z, n=L1, dim=0),
+                       dim=0, norm="forward")[:m1]
+    out = torch.stack([Z.real, Z.imag], dim=-1).reshape(m1, m2, -1)[..., :b]
+    return out.reshape(m1 * m2, b)
+
+
+def fused_gram_matvec_nd_pruned(geom: FusedSKIGeometry2D, lams,
+                                noise2: float, v):
+    """B10's function in B10's order (:func:`_grid_conv_2d_pruned`): the
+    CPU twin of the kernel's arithmetic, used by the tests; the plain
+    version the card holds B10 against stays
+    :func:`fused_gram_matvec_nd_plain`."""
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
+    ku = _grid_conv_2d_pruned(geom, lams[0], lams[1], u)
+    return interp_gather(t["idx"], t["w"], ku) + noise2 * v

@@ -344,6 +344,103 @@ def test_cuda_ski_2d_kernels_match_plain(cuda_device, dtype, tol, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("cap", [None, 64, 32])
+@pytest.mark.parametrize("b", [1, 2, 9, 17, 256])
+def test_cuda_ski_2d_gram_line_branches_match_plain(cuda_device, dtype, tol,
+                                                    cap, b):
+    """B10 against its plain version at b = 1, 2, 9, an odd 17 and 256, on
+    its shared-memory line kernels (cap None: L = 128 x 64 both fit) and,
+    with the line cap lowered, on the global passes of axis 0 (cap 64) and
+    of both axes (cap 32); one call, counted once, each time."""
+    op = _field_geometry()
+    geom = op.fused_geom
+    assert geom.Ls == (128, 64)
+    theta = torch.tensor(ND_THETAS["se*matern32"], dtype=torch.float64)
+    lams = tuple(lam.to(cuda_device, dtype) for lam in tsf.spectrum_nd(
+        op._kron.first_columns(theta), geom))
+    v = torch.tensor(np.random.default_rng(b).standard_normal((geom.n, b)),
+                     device=cuda_device, dtype=dtype)
+    _cuda.reset_launches()
+    if cap is None:
+        got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
+    else:
+        got = tsf._launch_gram_2d(geom, lams, 1e-3, v, cap)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"ski_gram_2d": 1}
+    want = tsf.fused_gram_matvec_nd_plain(geom, lams, 1e-3, v)
+    assert _relerr(got, want) < tol
+
+
+@pytest.mark.cuda
+def test_cuda_ski_2d_gram_beyond_the_line_cap_matches_plain(cuda_device):
+    """B10 on a field whose time axis (L1 = 8192) is longer than the
+    float64 line cap (4096): axis 0 on the global passes, axis 1 on its
+    line kernel, without lowering the cap."""
+    op = _field_geometry((2100, 3))
+    geom = op.fused_geom
+    assert op.fused and geom.Ls[0] > tsf.line_cap(8) >= geom.Ls[1]
+    theta = torch.tensor(ND_THETAS["se*matern32"], dtype=torch.float64)
+    lams = tuple(lam.to(cuda_device) for lam in tsf.spectrum_nd(
+        op._kron.first_columns(theta), geom))
+    assert _cuda.KERNELS.get("ski_gram_2d_line_cap")(8) == tsf.line_cap(8)
+    assert _cuda.KERNELS.get("ski_gram_2d_line_cap")(4) == tsf.line_cap(4)
+    for b in (1, 9):
+        v = torch.tensor(np.random.default_rng(b).standard_normal(
+            (geom.n, b)), device=cuda_device)
+        got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
+        want = tsf.fused_gram_matvec_nd_plain(geom, lams, 1e-3, v)
+        assert _relerr(got, want) < 1e-12
+
+
+FAMILY_THETAS = {"k1": [np.log(3.0), np.log(1.1), 0.1],
+                 "k2": ND_THETAS["k2*se"][:5], "se": [np.log(1.3)],
+                 "matern12": [np.log(0.9)], "matern32": [np.log(0.7)],
+                 "matern52": [np.log(1.6)]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("family", sorted(FAMILY_THETAS))
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_cuda_product_value_sweep_matches_plain(cuda_device, d, family,
+                                                dtype, tol):
+    """B8 and B13 (the value sweep's product entry) against their plain
+    versions: ``family`` on each axis in turn beside "se" on the others,
+    b = 1, 9, 16 (registers), 17 and 256 (tensor cores), ragged n1 and
+    n2; one launch each, counted under its own name."""
+    rng = np.random.default_rng(10 * d + len(family))
+    n1, n2 = 333, 301
+    for a in range(d):
+        kinds = ["se"] * d
+        kinds[a] = family
+        kind = "*".join(kinds)
+        theta = torch.tensor(sum((FAMILY_THETAS[k] for k in kinds), []),
+                             dtype=torch.float64)
+        p = tops.natural_params_nd(kind, theta).to(cuda_device, dtype)
+        x1 = torch.tensor(rng.uniform(0.0, 8.0, (n1, d)), device=cuda_device,
+                          dtype=dtype)
+        x2 = torch.tensor(rng.uniform(0.0, 8.0, (n2, d)), device=cuda_device,
+                          dtype=dtype)
+        rows = x2[torch.tensor(rng.permutation(n2)[:97], device=cuda_device)]
+        for b in (1, 9, 16, 17, 256):
+            v = torch.tensor(rng.standard_normal((n2, b)), device=cuda_device,
+                             dtype=dtype)
+            _cuda.reset_launches()
+            got = tkm.tile_matvec_nd(kinds, p, x1, x2, v)
+            slab = tkm.tile_matvec_rows_nd(kinds, p, rows, x2, v)
+            torch.cuda.synchronize()
+            assert dict(_cuda.LAUNCHES) == {"tile_matvec_nd": 1,
+                                            "tile_rows_nd": 1}
+            want = tkm.tile_matvec_nd_plain(kinds, p, x1, x2, v)
+            assert _relerr(got, want) < tol, (kind, b)
+            want = tkm.tile_matvec_nd_plain(kinds, p, rows, x2, v)
+            assert _relerr(slab, want) < tol, (kind, b)
+
+
+@pytest.mark.cuda
 def test_cuda_ski_2d_wrappers_refuse_what_the_kernels_cannot_take(
         cuda_device):
     geom = _field_geometry((12, 9)).fused_geom
@@ -409,10 +506,8 @@ def test_cuda_row_slab_kernels_match_plain(cuda_device, kind, dtype, b, n2,
         want = tkm.tile_matvec_plain(kind, p, xb, xt, vt)
     torch.cuda.synchronize()
     name = "tile_rows_nd" if nd else "tile_rows"
-    limit = (_cuda.KERNELS.get("tile_nd_max_cols")(1, len(kinds),
-                                                   vt.element_size())
-             if nd else _cuda.KERNELS.get("tile_matvec_max_cols")(
-                 vt.element_size()))
+    # B12 and B13 run the value sweep: one column limit for both
+    limit = _cuda.KERNELS.get("tile_matvec_max_cols")(vt.element_size())
     assert _cuda.LAUNCHES[name] == -(-k // limit)
     # a row slab runs B1's (B8's) sweep but counts under its own name
     assert _cuda.LAUNCHES["tile_matvec_nd" if nd else "tile_matvec"] == 0
