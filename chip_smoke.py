@@ -20,9 +20,14 @@ started together) and then:
      time the card could take (the roofline bound below); B5 is also
      timed against its plain version at n ~ 600, 2000 and 7080 (where the
      card's own crossover lies), and B7 at B = 1 is held against B5 on
-     the same inputs; B1 also at "se" (no Wendland window), k2 with T0 =
-     2000 h, k2 on unsorted points and k2 at b = 16 and 17 (either side of
-     its register / tensor-core switch), each B1 case with the share of
+     the same inputs; every B5 and B7 case prints its plan
+     (ski_gram_plan: the four-step split L1 x L2, launches per call,
+     scratch bytes), and both also run on the sequential-vs-bank check's
+     record (L = 2048, case "record": B5 at b = 9 in float64 and float32,
+     B7 at B = 4, c = 9); B1 also at "se" (no
+     Wendland window), k2 with T0 = 2000 h, k2 on unsorted points and
+     k2 at b = 16 and 17 (either side of its register / tensor-core
+     switch), each B1 case with the share of
      entries inside the window (support_share) and the (stripe, tile) pairs
      its kernel skips (tiles_skipped); B10 at the product-SKI cell (b = 9,
      8, 1, 256, float32) and on a field whose time axis is longer than its
@@ -41,9 +46,10 @@ started together) and then:
      variance;
   3. SKI phase: a gappy tide-gauge record (two years of the two-hour
      cadence, n_full = 7869, 10% of the samples dropped, n ~ 7080: a near
-     grid, the SKI operator with B5 and B6 and the circulant
-     preconditioner): GP.bind(k2) -> fit -> log_evidence -> compare (ln B
-     of k2 vs k1 with the default batch="auto": the batched bank, one B7
+     grid, the SKI operator with B5 and B6, the circulant preconditioner
+     and CG cut at SKI_CG_MAX_ITER): GP.bind(k2) -> fit -> log_evidence
+     -> compare (ln B of k2 vs k1 with the default batch="auto": the
+     batched bank, one B7
      launch per CG or Lanczos iteration, never B5) -> predict at 512
      points with variance and the SKI-interpolated cross covariance; the
      compare stage prints the bank's structure, fused, preconditioner, B,
@@ -165,11 +171,11 @@ started together) and then:
      printed); and the stochastic objective (backend pinned, the same
      probes and epoch permutations) at n = 1024, 1-D and (n, 2).
 
-After the build, two lines give the registers, stack frame and spills
+After the build, three lines give the registers, stack frame and spills
 from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
 B12, and kinds 6 and 7, the product entry of B8 and B13 for d <= 2 and
-d <= 4: ptxas_value_sweep) and
-of B10's line kernels (ptxas_ski_lines).
+d <= 4: ptxas_value_sweep), of B10's line kernels (ptxas_ski_lines) and
+of B5's and B7's (ptxas_ski_lines_1d).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The last line of standard output is the
@@ -435,6 +441,12 @@ CADENCE_H = 2.0
 TIDAL_MONTHS = 24
 DROP = 0.1
 TIDAL_SIGMA_N = 0.01
+# its CG cap.  At 400 nearly every solve of the fit and all of the Laplace
+# stage's were cut, and the smallest eigenvalue of the Laplace Hessian
+# (central differences of those gradients) was their noise: under five
+# matvecs that differ by rounding alone it ranged from -59165 to +22428,
+# and ln Z was nan for three of them (PERF.md §6)
+SKI_CG_MAX_ITER = 1200
 CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
                 ("N2", 12.6583475, 0.24), ("K1", 23.9344721, 0.14),
                 ("O1", 25.8193417, 0.11))
@@ -801,12 +813,17 @@ def value_ptxas(log: str):
                        width=int(m.group(4))))
 
 
-def ski_lines_ptxas(log: str):
-    """The same for B10's line kernels (ski_lines_2d.cuh), per dtype."""
+def ski_lines_ptxas(log: str, kernels=("rows_conv_2d", "cols_conv_2d")):
+    """The same for B10's line kernels (ski_lines_2d.cuh), or B5's and
+    B7's (SKI_LINES_1D, ski_lines_1d.cuh), per dtype."""
     return ptxas_rows(
-        log, r"(rows_conv_2d|cols_conv_2d)I([df])E",
+        log, rf"({'|'.join(kernels)})I([df])E",
         lambda m: dict(kernel=m.group(1), dtype="float64"
                        if m.group(2) == "d" else "float32"))
+
+
+SKI_LINES_1D = ("fs_columns_fwd", "fs_rows_conv", "fs_columns_inv",
+                "w_apply_lines_1d")
 
 
 def ptxas_rows(log: str, pattern: str, describe):
@@ -904,8 +921,10 @@ def jvp_kernel_cases(cases, x, dev, rng):
 def ski_kernel_cases(cases, dev, rng, seed):
     """B5 at b = 1 (value CG), 8 (Lanczos), 9 (training CG) and 256 (the
     predict variance chunk), B6 at m = 3 (k1) and 5 (k2) with b = 9, on
-    the SKI cell's geometry; one float32 case of each; then B5 against its
-    plain version at n ~ 600, 2000 and 7080."""
+    the SKI cell's geometry; one float32 case of each; then B5 timed and
+    held against its plain version at n ~ 600, 2000 and 7080 (the
+    crossover rows), and B7's cases (:func:`bank_kernel_cases`) and both
+    on the sequential-vs-bank record (:func:`record_cases`)."""
     x, _, _, _ = make_tidal_data(seed)
     xt = torch.tensor(x, device=dev)
     for dtype, shapes in ((torch.float64, (1, 8, 9, 256)),
@@ -925,9 +944,10 @@ def ski_kernel_cases(cases, dev, rng, seed):
             err, rel = errors(got, want)
             bms, by = ski_bound(geom, b, 0, dtype)
             cases["ski_gram"].append(dict(
-                kind="k2", n=geom.n, m_grid=geom.m_grid, L=geom.L, b=b,
-                dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                max_rel_err=rel,
+                kind="k2", case="cell", n=geom.n, m_grid=geom.m_grid,
+                L=geom.L, b=b, dtype=str(dtype).split(".")[-1],
+                **gram_1d_plan_keys("ski_gram", geom, (b + 1) // 2, dtype),
+                max_abs_err=err, max_rel_err=rel,
                 ms=time_ms(lambda: sf.fused_gram_matvec(
                     geom, lam, op.noise2, v), 20),
                 plain_ms=time_ms(lambda: sf.fused_gram_matvec_plain(
@@ -969,15 +989,80 @@ def ski_kernel_cases(cases, dev, rng, seed):
         lam = sf.spectrum(opers.ToeplitzOperator("k2", op.grid)
                           .first_column(theta), geom)
         v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev)
+        plan = sf.gram_1d_plan(geom.L, 5, 8)
+        got = sf.fused_gram_matvec(geom, lam, op.noise2, v)
+        want = sf.fused_gram_matvec_plain(geom, lam, op.noise2, v)
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
         row = dict(n=geom.n, m_grid=geom.m_grid, L=geom.L, b=9,
+                   split=list(plan.split), kernel_launches=plan.launches,
+                   max_abs_err=err, max_rel_err=rel,
                    ms=time_ms(lambda: sf.fused_gram_matvec(
                        geom, lam, op.noise2, v), 20),
                    plain_ms=time_ms(lambda: sf.fused_gram_matvec_plain(
                        geom, lam, op.noise2, v), 20))
         crossover.append(row)
         emit({"ski_gram_crossover": row})
+        if not rel <= TOL["ski_gram"]:
+            raise AssertionError(f"B5 disagrees with its plain version at "
+                                 f"{months} months: {row}")
     bank_kernel_cases(cases, dev, rng, seed)
+    record_cases(cases, dev, rng, seed)
     return crossover
+
+
+def gram_1d_plan_keys(name, geom, lines, dtype):
+    """The plan of one B5 or B7 call (ski_fused.gram_1d_plan) on ``lines``
+    packed columns, printed as a ski_gram_plan line; returns its keys for
+    the case's row."""
+    item = torch.finfo(dtype).bits // 8
+    plan = sf.gram_1d_plan(geom.L, lines, item, geom.split)
+    keys = dict(split=list(plan.split), line_cap=plan.cap,
+                kernel_launches=plan.launches,
+                scratch_bytes=2 * item * plan.scratch)
+    emit({"ski_gram_plan": dict(kernel=name, L=geom.L, lines=lines,
+                                dtype=str(dtype).split(".")[-1], **keys)})
+    return keys
+
+
+def record_cases(cases, dev, rng, seed):
+    """B5 (b = 9, float64 and float32) and B7 (B = 4, c = 9) on the
+    sequential-vs-bank check's record (SEQ_VS_BANK_MONTHS, L = 2048), the
+    shapes that phase launches most, through the wrappers it calls."""
+    xs, _, _, _ = make_tidal_data(seed, months=SEQ_VS_BANK_MONTHS)
+    op = opers.select_operator("k2", torch.tensor(xs, device=dev),
+                               TIDAL_SIGMA_N, 1e-8)
+    geom = op.fused_geom
+    for name, B, c, dtype in (("ski_gram", 1, 9, torch.float64),
+                              ("ski_gram", 1, 9, torch.float32),
+                              ("ski_bank", 4, 9, torch.float64)):
+        lams = bank_spectra(op, B, dtype)
+        shape = (geom.n, c) if name == "ski_gram" else (geom.n, B, c)
+        v = torch.tensor(rng.standard_normal(shape), device=dev, dtype=dtype)
+        if name == "ski_gram":
+            def kern():
+                return sf.fused_gram_matvec(geom, lams[0], op.noise2, v)
+
+            def plain():
+                return sf.fused_gram_matvec_plain(geom, lams[0], op.noise2, v)
+        else:
+            def kern():
+                return sf.fused_bank_matvec(geom, lams, op.noise2, v)
+
+            def plain():
+                return sf.fused_bank_matvec_plain(geom, lams, op.noise2, v)
+
+        keys = gram_1d_plan_keys(name, geom, B * ((c + 1) // 2), dtype)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel = errors(got, want)
+        bms, by = ski_bound(geom, c, 0, dtype, members=B)
+        cases[name].append(dict(
+            kind="k1" if B == 1 else "k1/k2", case="record",
+            n=geom.n, m_grid=geom.m_grid, L=geom.L, B=B, b=c, c=c,
+            dtype=str(dtype).split(".")[-1], **keys, max_abs_err=err,
+            max_rel_err=rel, ms=time_ms(kern, 20),
+            plain_ms=time_ms(plain, 10), bound_ms=bms, bound_by=by))
 
 
 def bank_spectra(op, B: int, dtype):
@@ -1016,9 +1101,11 @@ def bank_kernel_cases(cases, dev, rng, seed):
             err, rel = errors(got, want)
             bms, by = ski_bound(geom, c, 0, dtype, members=B)
             cases["ski_bank"].append(dict(
-                kind="k1/k2", n=geom.n, m_grid=geom.m_grid, L=geom.L, B=B,
-                c=c, dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                max_rel_err=rel,
+                kind="k1/k2", case="cell", n=geom.n, m_grid=geom.m_grid,
+                L=geom.L, B=B, c=c, dtype=str(dtype).split(".")[-1],
+                **gram_1d_plan_keys("ski_bank", geom, B * ((c + 1) // 2),
+                                    dtype),
+                max_abs_err=err, max_rel_err=rel,
                 ms=time_ms(lambda: sf.fused_bank_matvec(
                     geom, lams, op.noise2, V), 20),
                 plain_ms=time_ms(lambda: sf.fused_bank_matvec_plain(
@@ -1639,9 +1726,9 @@ def check_cases(cases, names):
 HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
             "tile_tangent": dict(kind="k2"),
             "tile_matrix": dict(kind="k2"),
-            "ski_gram": dict(b=9, dtype="float64"),
+            "ski_gram": dict(case="cell", b=9, dtype="float64"),
             "ski_tangent": dict(kind="k2", dtype="float64"),
-            "ski_bank": dict(B=4, c=9, dtype="float64"),
+            "ski_bank": dict(case="cell", B=4, c=9, dtype="float64"),
             "tile_matvec_nd": dict(n1=N_ND_IRREGULAR, b=9),
             "tile_tangent_nd": dict(kind=ND_KIND),
             "ski_gram_2d": dict(case="cell", b=9, dtype="float64"),
@@ -1800,16 +1887,24 @@ def describe_bank(tr, opts):
                     thetas, thetas.dtype) is not None)
 
 
+def ski_policy(cg_max_iter=SKI_CG_MAX_ITER, max_iters=25, fused="auto"):
+    """The SKI cell's solver policy (``scripts/ski_fit_variants.py`` fits
+    the cell under it with another CG cap, step count or ``fused``)."""
+    opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
+                          cg_max_iter=cg_max_iter, precond="auto",
+                          fused=fused)
+    return gp.SolverPolicy(backend="auto", n_starts=2, max_iters=max_iters,
+                           scan_points=64, opts=opts)
+
+
 def ski_phase(seed):
     """The near-grid path: a gappy tide record through the SKI operator
     (B5 and B6) with the circulant preconditioner: bind(k2) -> fit ->
     log_evidence -> compare([k1, k2]) (the batched bank, B7) ->
     predict."""
     x_np, y_np, xstar_np, n_full = make_tidal_data(seed)
-    opts = eng.SolverOpts(n_probes=8, lanczos_k=48, cg_tol=1e-6,
-                          cg_max_iter=400, precond="auto")
-    policy = gp.SolverPolicy(backend="auto", n_starts=2, max_iters=25,
-                             scan_points=64, opts=opts)
+    policy = ski_policy()
+    opts = policy.opts
     boxes = tidal_boxes()
     specs = [gp.GPSpec(k, box=boxes[k],
                        noise=gp.NoiseModel(sigma_n=TIDAL_SIGMA_N),
@@ -2430,6 +2525,8 @@ def main(argv=None) -> int:
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
     emit({"ptxas_value_sweep": value_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines": ski_lines_ptxas(_cuda.KERNELS.ptxas_log)})
+    emit({"ptxas_ski_lines_1d": ski_lines_ptxas(_cuda.KERNELS.ptxas_log,
+                                                SKI_LINES_1D)})
     if args.six_month:
         sig, starts, iters, scan, *months = args.six_month.split(",")
         sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),

@@ -11,10 +11,11 @@ median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5), B3
 b = 9), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
 cell of ``chip_smoke.py``, B10 (its product-SKI cell, b = 1, 9 and 256)
 and B11 (m = 2, b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
-(b = 2048, "se*matern32", k = 9 and 256).  The keys ending in ``_dev``
-give the card's time alone for B8, B10 and B13: 20 calls captured in one
-CUDA graph and replayed (CUDA events around the replay, over 20), so the
-host's work per call, which the other keys include, drops out.  Compare
+(b = 2048, "se*matern32", k = 9 and 256), and B5 at b = 256.  The keys
+ending in ``_dev`` give the card's time alone for B5 (b = 9 and 256), B6,
+B7, B8, B10 and B13: 20 calls captured in one CUDA graph and replayed
+(CUDA events around the replay, over 20), so the host's work per call,
+which the other keys include, drops out.  Compare
 two commits only within one call, in turns (parent, change, change,
 parent), each in its own process.
 """
@@ -112,12 +113,20 @@ def main(tree: str, label: str) -> None:
     lam7 = cs.bank_spectra(sop, 4, torch.float64)
     s9 = torch.tensor(rng.standard_normal((sgeom.n, 9)), device=dev)
     s49 = torch.tensor(rng.standard_normal((sgeom.n, 4, 9)), device=dev)
-    res["B5_b9"] = cs.time_ms(
-        lambda: sf.fused_gram_matvec(sgeom, lam5, sop.noise2, s9), 20)
+    s256 = torch.tensor(rng.standard_normal((sgeom.n, 256)), device=dev)
+    for b, sv in ((9, s9), (256, s256)):
+        res[f"B5_b{b}"] = cs.time_ms(
+            lambda: sf.fused_gram_matvec(sgeom, lam5, sop.noise2, sv), 20)
+        res[f"B5_b{b}_dev"] = graph_ms(
+            lambda: sf.fused_gram_matvec(sgeom, lam5, sop.noise2, sv))
     res["B6_k2_m5"] = cs.time_ms(
         lambda: sf.fused_tangent_matvecs(sgeom, lam6, s9), 20)
+    res["B6_k2_m5_dev"] = graph_ms(
+        lambda: sf.fused_tangent_matvecs(sgeom, lam6, s9))
     res["B7_B4_c9"] = cs.time_ms(
         lambda: sf.fused_bank_matvec(sgeom, lam7, sop.noise2, s49), 20)
+    res["B7_B4_c9_dev"] = graph_ms(
+        lambda: sf.fused_bank_matvec(sgeom, lam7, sop.noise2, s49))
     xf, _, _ = cs.make_field(0)
     op = opers.select_operator(cs.ND_KIND, torch.tensor(xf, device=dev),
                                cs.FIELD_SIGMA_N, 1e-8)

@@ -1,13 +1,15 @@
-// The fused SKI sandwich, shared by B5 (ski_gram.cu), B6 (ski_tangent.cu)
-// and B7 (ski_bank.cu):
+// The fused SKI sandwich of B6 (ski_tangent.cu):
 //
 //     out_i = W irfft(lam_i * rfft(pad_L(W^T v))) [+ noise2 v]
 //
-// Replaces the TPU kernels fused_gram_matvec, fused_tangent_matvecs and
-// fused_bank_matvec of src/repro/kernels/ski_fused.py, which run W^T, the
-// circulant-embedding FFT pair and W inside one Pallas body with their own
-// FFT (the TPU has no FFT primitive in a kernel).  The FFT here is written
-// by hand as well; no library transform runs inside the path.
+// Replaces the TPU kernel fused_tangent_matvecs of
+// src/repro/kernels/ski_fused.py, which runs W^T, the circulant-embedding
+// FFT pair and W inside one Pallas body with its own FFT (the TPU has no
+// FFT primitive in a kernel).  The FFT here is written by hand as well; no
+// library transform runs inside the path.  B5 and B7 (fused_gram_matvec,
+// fused_bank_matvec) compute the same function with a noise term on line
+// transforms held in shared memory (ski_lines_1d.cuh); sandwich() still
+// takes their shapes (B = m_dirs = 1, or m_dirs = 1 with B members).
 //
 // What it computes, for a near-grid geometry (every data row in a distinct
 // cell of the m-cell inducing grid; occ: cell -> row, n marks an empty
@@ -23,8 +25,8 @@
 // two (an odd column count pads a zero half).  B6 shares W^T and the
 // forward FFT across its m_dirs tangent spectra: the first inverse stage
 // reads each forward column once per direction and writes m_dirs * P
-// columns.  B7 takes v as (n, B, c) and multiplies the packed columns of
-// member q by that member's own spectrum.
+// columns.  With B members, v is (n, B, c) and the packed columns of
+// member q are multiplied by that member's own spectrum.
 //
 // The Stockham pass (fft_stage) is the one the 2-D sandwich runs
 // (ski_fft_2d.cuh): it takes the axis of an (L1, L2) plane as an
@@ -36,8 +38,8 @@
 // What bounds it on an H100: at the main path's shape (n ~ 7080,
 // m ~ 7875, L = 16384, b = 9, float64) the function must move ~1.5 MB
 // (~0.4 us at 3.35 TB/s) and do ~1.2e7 FFT operations (~0.3 us at
-// 34 TFLOP/s fp64): far below what one launch costs.  This first design
-// is launch-latency bound: W^T + 2 log4(L) Stockham stages + W, one launch
+// 34 TFLOP/s fp64): far below what one launch costs.  This design is
+// launch-latency bound: W^T + 2 log4(L) Stockham stages + W, one launch
 // each (16 at L = 16384), every stage reading and writing the (P, L)
 // complex ping-pong buffer (1.3 MB at b = 9, so it stays in the 50 MB L2).
 // What the design does about it: radix-4 stages halve the passes of
@@ -45,8 +47,9 @@
 // on exact power-of-two fractions (never sin of a large argument); empty
 // cells are tested by their sentinel, never read.  A one-column-per-block
 // transform does not fit (one float64 column is 256 KB, a block has
-// 227 KB); a four-step L = L1 L2 split with the sub-transforms in shared
-// memory is the design for a later change.
+// 227 KB); the four-step L = L1 L2 split with the sub-transforms in shared
+// memory, which B5 and B7 run (ski_lines_1d.cuh: 4 launches), would take
+// B6 as well, with its m_dirs spectra in the row step.
 
 #pragma once
 

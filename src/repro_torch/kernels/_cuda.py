@@ -32,7 +32,7 @@ SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
            "tile_tangent_nd.cu", "ski_gram_2d.cu", "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
            "tile_sweep_nd.cuh", "ski_fft.cuh", "ski_fft_2d.cuh",
-           "ski_lines_2d.cuh")
+           "ski_lines_2d.cuh", "ski_lines_1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -93,12 +93,17 @@ _SIGNATURES = {
                             _VOID, _INT, _VOID, _INT, _INT, _INT, _INT,
                             _VOID, _VOID, _INT, _VOID],
 }
-# the three SKI kernels share one signature: (n, m, L, d0, s, occ, wcell,
-# cell, lams, m_dirs, noise2, v, B, c, out, scratch0, scratch1, stream)
-for _name in ("ski_gram_f64", "ski_tangent_f64", "ski_bank_f64"):
-    _SIGNATURES[_name] = ([_INT] * 5 + [_VOID] * 4 + [_INT, _DOUBLE, _VOID,
-                                                      _INT, _INT]
-                          + [_VOID] * 4)
+# B6: (n, m, L, d0, s, occ, wcell, cell, lams, m_dirs, noise2, v, B, c,
+# out, scratch0, scratch1, stream)
+_SIGNATURES["ski_tangent_f64"] = ([_INT] * 5 + [_VOID] * 4
+                                  + [_INT, _DOUBLE, _VOID, _INT, _INT]
+                                  + [_VOID] * 4)
+# B5 and B7: (n, m, L, s, offs, occ, wcell, cell, lams, noise2, v, B, c,
+# out, scratch, L1, col_tpl, col_lpb, row_tpl, row_lpb, stream)
+for _name in ("ski_gram_f64", "ski_bank_f64"):
+    _SIGNATURES[_name] = ([_INT] * 4 + [_VOID] * 5
+                          + [_DOUBLE, _VOID, _INT, _INT, _VOID, _VOID]
+                          + [_INT] * 5 + [_VOID])
 # B11: (n, m1, m2, L1, L2, s, offs, occ, wcell, cell, lam1, lam2, m_dirs,
 # noise2, v, c, out, scratch0, scratch1, stream); B10 the same without
 # m_dirs and with its line plan (cap, row_tpl, row_lpb, col_tpl, col_lpb)
@@ -137,16 +142,19 @@ class _Kernels:
             procs[src] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, lib)
-        logs = []
         failed = []
         for src, (proc, tmp, lib) in procs.items():
             log, _ = proc.communicate()
-            logs.append(f"== {src}\n{log}")
+            lib.with_suffix(".log").write_text(log)
             if proc.returncode != 0:
                 failed.append(src)
             else:
                 os.replace(tmp, lib)
-        self.ptxas_log = "\n".join(logs)
+        # each source's nvcc log is kept beside its library, so a reused
+        # build still reports its registers and spills
+        self.ptxas_log = "\n".join(
+            f"== {src}\n{log.read_text()}" for src in SOURCES
+            if (log := out_dir / (Path(src).stem + ".log")).exists())
         if failed:
             raise RuntimeError(f"nvcc failed for {failed}:\n{self.ptxas_log}")
         self.build_seconds = time.perf_counter() - t0

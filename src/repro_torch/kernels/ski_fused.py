@@ -13,13 +13,15 @@ W^T are banded maps around one row gather (``occ``: cell -> point row,
 
 with lam the real spectrum of the grid covariance's circulant embedding
 (length L, a power of two >= 2 m_grid - 1; the filler between the two
-mirrored halves is don't-care).  The CUDA kernels (``csrc/ski_gram.cu``,
-``csrc/ski_tangent.cu``, ``csrc/ski_bank.cu``, FFT in
-``csrc/ski_fft.cuh``) do the whole
-sandwich with a hand-written FFT; see ``csrc/ski_fft.cuh`` for the design
-and what bounds it on an H100.  The spectrum is built outside the kernel
-(:func:`spectrum`), once per theta and solve, on ``torch.fft``; natural
-frequency order, so nothing is permuted.
+mirrored halves is don't-care).  The CUDA kernels do the whole sandwich
+with a hand-written FFT.  B5 and B7 (``csrc/ski_gram.cu``,
+``csrc/ski_bank.cu``) run it on line transforms in shared memory
+(``csrc/ski_lines_1d.cuh``): a four-step split L = L1 L2 (4 launches,
+one scratch: :func:`gram_1d_plan`); :func:`fused_sandwich_four_step` is
+that order on ``torch.fft``, for the tests.  B6 (``csrc/ski_tangent.cu``)
+runs global-memory Stockham passes (``csrc/ski_fft.cuh``).  The spectrum
+is built outside the kernel (:func:`spectrum`), once per theta and solve,
+on ``torch.fft``; natural frequency order, so nothing is permuted.
 
 On a 2-D product grid (m1 x m2 cells, flat row-major) the same sandwich
 runs with the outer product of two axis spectra, lam1 (L1,) and lam2
@@ -123,6 +125,8 @@ class FusedSKIGeometry:
     offs:  the stencil offsets d (consecutive): nodes touched are cell + d.
     L:     the FFT length (power of two >= 2 m_grid - 1).
     idx, w: the (n, s) rows of W, for the plain versions.
+    split: the four-step split (L1, L2) that B5 and B7 run on this
+           geometry; None (the default) takes :func:`gram_1d_plan`'s.
     """
 
     def __init__(self, n, m_grid, occ, wcell, cell, offs, L, idx, w):
@@ -135,7 +139,9 @@ class FusedSKIGeometry:
         self.L = int(L)
         self.idx = idx
         self.w = w
+        self.split = None
         self._tensors = {}
+        self._calls = {}
 
     def tensors(self, device, dtype) -> dict:
         """The constants as tensors on ``device`` (weights in ``dtype``),
@@ -302,15 +308,15 @@ def _check(geom: FusedSKIGeometry, lams, v, layout: str = "(n, b)"):
 
 
 def fused_gram_matvec(geom: FusedSKIGeometry, lam, noise2: float, v):
-    """B5: (W K_grid W^T + noise2 I) v, v (n, b) -> (n, b), one launch.
+    """B5: (W K_grid W^T + noise2 I) v, v (n, b) -> (n, b), one call (4
+    launches: :func:`gram_1d_plan`).
 
     ``lam`` is the (L,) spectrum from :func:`spectrum`.
     """
     dev = _check(geom, lam[None], v)
     if dev.type == "cpu":
         return fused_gram_matvec_plain(geom, lam, noise2, v)
-    return _launch("ski_gram", geom, lam[None], noise2, v,
-                   torch.empty_like(v), B=1, c=v.shape[1], m_dirs=1)
+    return _launch_gram_1d("ski_gram", geom, lam[None], noise2, v)
 
 
 def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
@@ -321,45 +327,168 @@ def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
     dev = _check(geom, lams, v)
     if dev.type == "cpu":
         return fused_tangent_matvecs_plain(geom, lams, v)
-    return _launch("ski_tangent", geom, lams, 0.0, v,
-                   v.new_empty((lams.shape[0],) + tuple(v.shape)), B=1,
-                   c=v.shape[1], m_dirs=lams.shape[0])
+    m_dirs = int(lams.shape[0])
+    out = v.new_empty((m_dirs,) + tuple(v.shape))
+    if out.numel() == 0:
+        return out
+    t = geom.tensors(v.device, v.dtype)
+    cols = m_dirs * ((int(v.shape[1]) + 1) // 2)
+    # two ping-pong buffers of (cols, L) complex values
+    scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
+                          device=v.device)
+    _cuda.call(f"ski_tangent_{_cuda.dtype_suffix(v.dtype)}",
+               int(v.shape[0]), geom.m_grid, geom.L, geom.offs[0],
+               len(geom.offs), t["occ"].data_ptr(), t["wcell"].data_ptr(),
+               t["cell"].data_ptr(), lams.data_ptr(), m_dirs, 0.0,
+               v.data_ptr(), 1, int(v.shape[1]), out.data_ptr(),
+               scratch[0].data_ptr(), scratch[1].data_ptr(),
+               _cuda.stream_ptr(v.device))
+    _cuda.LAUNCHES["ski_tangent"] += 1
+    return out
 
 
 def fused_bank_matvec(geom: FusedSKIGeometry, lams, noise2: float, V):
     """B7: the bank gram, member q of V (n, B, c) times
-    (W K_q W^T + noise2 I), one launch: (n, B, c).  ``lams`` (B, L) are
-    the members' spectra from :func:`spectrum`; all share the geometry."""
+    (W K_q W^T + noise2 I), one call (4 launches: :func:`gram_1d_plan`):
+    (n, B, c).  ``lams`` (B, L) are the members' spectra from
+    :func:`spectrum`; all share the geometry."""
     dev = _check(geom, lams, V, "(n, B, c)")
     if lams.shape[0] != V.shape[1]:
         raise ValueError(f"one spectrum per member: {lams.shape[0]} "
                          f"spectra for B = {V.shape[1]}")
     if dev.type == "cpu":
         return fused_bank_matvec_plain(geom, lams, noise2, V)
-    return _launch("ski_bank", geom, lams, noise2, V, torch.empty_like(V),
-                   B=V.shape[1], c=V.shape[2], m_dirs=1)
+    return _launch_gram_1d("ski_bank", geom, lams, noise2, V)
 
 
-def _launch(name, geom, lams, noise2, v, out, *, B, c, m_dirs):
-    """One launch of B5, B6 or B7 into ``out``: v holds B members of c
-    columns each (B = 1 for B5 and B6), lams one spectrum per direction
-    (B6) or per member (B7)."""
+# ---------------------------------------------------------------------------
+# B5's and B7's plan: four steps of shared-memory line transforms
+# ---------------------------------------------------------------------------
+
+class Gram1DPlan(NamedTuple):
+    """How B5 and B7 run one call (csrc/ski_lines_1d.cuh).
+
+    cap:      the longest line transformed in shared memory.
+    split:    (L1, L2), L = L1 L2 with L1 <= cap and 2 <= L2 <= cap.
+    cols:     (tpl, lpb) of steps 1 and 3 (lines of L2 points).
+    rows:     (tpl, lpb) of step 2 (lines of L1 points).
+    launches: kernel launches per call.
+    scratch:  complex values of the one scratch buffer, lines * L.
+    """
+    cap: int
+    split: tuple
+    cols: tuple
+    rows: tuple
+    launches: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=256)
+def gram_1d_plan(L: int, lines: int, itemsize: int,
+                 split: Optional[tuple] = None) -> Gram1DPlan:
+    """B5's and B7's plan for ``lines`` packed columns (B ceil(c / 2)) of
+    length L: the columns forward, the rows with the spectrum, the columns
+    back and W (four launches) on the split (L1, L2), by default
+    L2 = min(cap, 2^ceil(log2 L / 2)) and L1 = L / L2.  L > cap^2, or a
+    split that does not multiply to L or has a factor out of range, is
+    refused.  There is no one-line branch where L <= cap: one block per
+    packed column lost to the four-step on the card (PERF.md §6)."""
+    L, lines = int(L), int(lines)
+    cap = line_cap(itemsize)
+    if split is None:
+        L2 = min(cap, 1 << (L.bit_length() // 2))
+        L1 = L // L2
+        if L1 > cap:
+            raise ValueError(f"the SKI embedding L = {L} is longer than the "
+                             f"four-step limit cap^2 = {cap * cap} (line "
+                             f"cap {cap})")
+    else:
+        L1, L2 = (int(f) for f in split)
+        if L1 * L2 != L or not (1 <= L1 <= cap and 2 <= L2 <= cap):
+            raise ValueError(f"split {split} is not L1 x L2 = {L} with "
+                             f"L1 <= {cap} and 2 <= L2 <= {cap}")
+    return Gram1DPlan(cap, (L1, L2), line_kernel_plan(L2, L1, itemsize),
+                      line_kernel_plan(L1, L2, itemsize), 4, lines * L)
+
+
+def _launch_gram_1d(name, geom, lams, noise2, v):
+    """B5 (v (n, b), lams (1, L)) or B7 (v (n, B, c), lams (B, L)) on the
+    card: one scratch allocation, one C call.  Every CG and Lanczos
+    iteration on near-grid data makes this call, so what depends only on
+    the geometry, the shape and the dtype (the plan on ``geom.split``, the
+    constants' pointers) is kept on the geometry."""
+    out = torch.empty_like(v)
     if out.numel() == 0:
         return out
-    t = geom.tensors(v.device, v.dtype)
-    cols = m_dirs * B * ((c + 1) // 2)
-    # two ping-pong buffers of (cols, L) complex values
-    scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
-                          device=v.device)
-    _cuda.call(f"{name}_{_cuda.dtype_suffix(v.dtype)}", int(v.shape[0]),
-               geom.m_grid, geom.L, geom.offs[0], len(geom.offs),
-               t["occ"].data_ptr(), t["wcell"].data_ptr(),
-               t["cell"].data_ptr(), lams.data_ptr(), int(m_dirs),
-               float(noise2), v.data_ptr(), int(B), int(c), out.data_ptr(),
-               scratch[0].data_ptr(), scratch[1].data_ptr(),
+    key = (name, v.device, v.dtype, tuple(v.shape[1:]), geom.split)
+    call = geom._calls.get(key)
+    if call is None:
+        t = geom.tensors(v.device, v.dtype)
+        B, c = (1, int(v.shape[1])) if v.ndim == 2 else (int(v.shape[1]),
+                                                           int(v.shape[2]))
+        plan = gram_1d_plan(geom.L, B * ((c + 1) // 2), v.element_size(),
+                            geom.split)
+        call = geom._calls[key] = (
+            f"{name}_{_cuda.dtype_suffix(v.dtype)}", plan.scratch,
+            (geom.n, geom.m_grid, geom.L, len(geom.offs),
+             t["offs"].data_ptr(), t["occ"].data_ptr(),
+             t["wcell"].data_ptr(), t["cell"].data_ptr()),
+            (B, c), (plan.split[0], *plan.cols, *plan.rows))
+    fn, n_scratch, head, bc, tail = call
+    scratch = torch.empty((n_scratch, 2), dtype=v.dtype, device=v.device)
+    _cuda.call(fn, *head, lams.data_ptr(), float(noise2), v.data_ptr(), *bc,
+               out.data_ptr(), scratch.data_ptr(), *tail,
                _cuda.stream_ptr(v.device))
     _cuda.LAUNCHES[name] += 1
     return out
+
+
+def _grid_conv_four_step(geom, lams, u, split):
+    """The convolution of :func:`_grid_conv_plain` on u (m, B, c), member q
+    through lams[q], in B5's and B7's order (csrc/ski_lines_1d.cuh): two
+    real columns of one member packed in one complex line (a zero half for
+    an odd c), then the four steps of split (L1, L2): the transforms over
+    n2 of the cells n1 + L1 n2 times w_L^{n1 k2}, over n1 with
+    lam[k2 + L2 k1] and back over k1 times w_L^{-n1 k2}, back over k2,
+    cropped to m."""
+    L, m = geom.L, geom.m_grid
+    B, c = u.shape[1], u.shape[2]
+    if c % 2:
+        u = torch.cat([u, u.new_zeros((m, B, 1))], dim=2)
+    Z = torch.complex(u[..., 0::2], u[..., 1::2])             # (m, B, P)
+    x = torch.cat([Z, Z.new_zeros((L - m,) + Z.shape[1:])])
+    lam = lams.T[:, :, None]                                   # (L, B, 1)
+    L1, L2 = split
+    X = x.reshape((L2, L1) + x.shape[1:])                      # [n2, n1]
+    e = (torch.arange(L2)[:, None] * torch.arange(L1)[None, :]) % L
+    tw = torch.polar(torch.ones((L2, L1), dtype=u.dtype),
+                     -2.0 * torch.pi * e.to(u.dtype) / L)[:, :, None, None]
+    Y = torch.fft.fft(X, dim=0) * tw                           # [k2, n1]
+    lam2 = lam.reshape((L1, L2) + lam.shape[1:]).transpose(0, 1)
+    Y = torch.fft.ifft(lam2 * torch.fft.fft(Y, dim=1), dim=1,
+                       norm="forward") * tw.conj()             # [k2, n1]
+    z = torch.fft.ifft(Y, dim=0, norm="forward").reshape(x.shape)[:m]
+    out = torch.stack([z.real, z.imag], dim=-1).reshape(m, B, -1)
+    return out[..., :c]
+
+
+def fused_sandwich_four_step(geom: FusedSKIGeometry, lams, noise2: float, V,
+                             split=None):
+    """B5's and B7's function in their order (:func:`_grid_conv_four_step`)
+    on V (n, b) with lams (L,), or V (n, B, c) with lams (B, L), on
+    ``split`` (None: the geometry's, as the kernels take it): the CPU twin
+    of the kernels' arithmetic, used by the tests; the plain versions the
+    card holds them against stay :func:`fused_gram_matvec_plain` and
+    :func:`fused_bank_matvec_plain`."""
+    split = gram_1d_plan(geom.L, 1, V.element_size(),
+                         geom.split if split is None else tuple(split)).split
+    t = geom.tensors(V.device, V.dtype)
+    U = V[:, None] if V.ndim == 2 else V
+    lams = lams[None] if lams.ndim == 1 else lams
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, U)
+    ku = _grid_conv_four_step(geom, lams, u, split)
+    out = interp_gather(t["idx"], t["w"], ku) + noise2 * U
+    return out[:, 0] if V.ndim == 2 else out
 
 
 # ---------------------------------------------------------------------------

@@ -266,6 +266,118 @@ def test_cuda_bank_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
                                                     wide)) < 1e-12
 
 
+# gappy records (_ski_geometry's n_full) whose SKI embedding L is 2048, 8192
+# and 16384 (four steps of 32 x 64, 64 x 128 and 128 x 128)
+SKI_RECORDS = {2048: 601, 8192: 3001, 16384: 6000}
+# B5's and B7's splits: the plan's own (None), a non-square one, and one
+# line of L points (L1 = 1: step 2 a multiply by the spectrum)
+SKI_SPLITS = [(2048, None), (2048, (64, 32)), (2048, (1, 2048)),
+              (8192, None), (16384, None)]
+
+
+def _ski_spectra(op, B):
+    """(B, L) k2 spectra on op's grid, member q's window moved 0.05 q."""
+    grid = topers.ToeplitzOperator("k2", op.grid)
+    base = torch.tensor(THETAS[("k2", "mid")], dtype=torch.float64)
+    step = torch.zeros_like(base)
+    step[0] = 0.05
+    return torch.stack([tsf.spectrum(grid.first_column(base + q * step),
+                                     op.fused_geom) for q in range(B)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("L,split", SKI_SPLITS)
+@pytest.mark.parametrize("b", [1, 9, 256])
+def test_cuda_ski_gram_four_step_matches_plain(cuda_device, dtype, tol, L,
+                                               split, b):
+    """B5 against its plain version on the four steps of its plan and on
+    the splits of SKI_SPLITS set on the geometry; one call, counted
+    once."""
+    op = _ski_geometry(SKI_RECORDS[L])
+    geom = op.fused_geom
+    assert geom.L == L
+    geom.split = split
+    lam = _ski_spectra(op, 1)[0].to(cuda_device, dtype)
+    v = torch.tensor(np.random.default_rng(b).standard_normal((geom.n, b)),
+                     device=cuda_device, dtype=dtype)
+    _cuda.reset_launches()
+    got = tsf.fused_gram_matvec(geom, lam, 1e-4, v)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"ski_gram": 1}
+    assert _relerr(got, tsf.fused_gram_matvec_plain(geom, lam, 1e-4, v)) \
+        < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("L,split", SKI_SPLITS)
+def test_cuda_bank_four_step_matches_plain(cuda_device, dtype, tol, L,
+                                           split):
+    """B7 at B = 20, c = 9 (the reference's ten restarts of two models)
+    against its plain version on the splits of SKI_SPLITS, one call
+    counted once; at B = 1 against B5 on the same split."""
+    op = _ski_geometry(SKI_RECORDS[L])
+    geom = op.fused_geom
+    geom.split = split
+    lams = _ski_spectra(op, 20).to(cuda_device, dtype)
+    rng = np.random.default_rng(L)
+    V = torch.tensor(rng.standard_normal((geom.n, 20, 9)),
+                     device=cuda_device, dtype=dtype)
+    _cuda.reset_launches()
+    got = tsf.fused_bank_matvec(geom, lams, 1e-4, V)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"ski_bank": 1}
+    assert _relerr(got, tsf.fused_bank_matvec_plain(geom, lams, 1e-4, V)) \
+        < tol
+    one = tsf.fused_bank_matvec(geom, lams[:1], 1e-4, V[:, :1].contiguous())
+    b5 = tsf.fused_gram_matvec(geom, lams[0], 1e-4, V[:, 0].contiguous())
+    assert _relerr(one[:, 0], b5) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2048, 16384])
+def test_cuda_ski_gram_and_bank_replay_in_a_cuda_graph(cuda_device, L):
+    """B5 and B7 captured in one CUDA graph (four steps of 32 x 64 at
+    L = 2048, 128 x 128 at 16384) and replayed on new inputs: the plain
+    versions' answers on those inputs.  Relaxed capture: a plan whose
+    blocks take more than 48 KB of shared memory sets its kernels'
+    attribute (not a stream operation)."""
+    op = _ski_geometry(SKI_RECORDS[L])
+    geom = op.fused_geom
+    lams = _ski_spectra(op, 4).to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(L)
+    v = torch.empty((geom.n, 9), device=cuda_device, dtype=torch.float64)
+    V = torch.empty((geom.n, 4, 9), device=cuda_device, dtype=torch.float64)
+
+    def calls():
+        return (tsf.fused_gram_matvec(geom, lams[0], 1e-4, v),
+                tsf.fused_bank_matvec(geom, lams, 1e-4, V))
+
+    v.normal_(generator=gen)
+    V.normal_(generator=gen)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    _cuda.reset_launches()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        out5, out7 = calls()
+    assert dict(_cuda.LAUNCHES) == {"ski_gram": 1, "ski_bank": 1}
+    v.normal_(generator=gen)
+    V.normal_(generator=gen)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _relerr(out5, tsf.fused_gram_matvec_plain(
+        geom, lams[0], 1e-4, v)) < 1e-12
+    assert _relerr(out7, tsf.fused_bank_matvec_plain(
+        geom, lams, 1e-4, V)) < 1e-12
+
+
 ND_THETAS = {
     "se*matern32": [np.log(1.3), np.log(0.7)],
     "k2*se": [np.log(3.0), np.log(1.1), 0.1, np.log(1.9), -0.2,
