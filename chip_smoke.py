@@ -29,7 +29,12 @@ started together) and then:
      k2 at b = 16 and 17 (either side of its register / tensor-core
      switch), each B1 case with the share of
      entries inside the window (support_share) and the (stripe, tile) pairs
-     its kernel skips (tiles_skipped); B10 at the product-SKI cell (b = 9,
+     its kernel skips (tiles_skipped); B2 at k1 and k2 with b = 9, 1, 8,
+     16 and 17, k2 with T0 = 2000 h, k2 on unsorted points with random
+     dense pdots of m = 1 .. 5 rows, and at the stochastic 1-D stage's
+     shape ("se", n = 65536, b = 9, m = 1; also under --stochastic), each
+     with support_share and tiles_skipped on its own stripes; B10 at the
+     product-SKI cell (b = 9,
      8, 1, 256, float32) and on a field whose time axis is longer than its
      float64 line cap (L1 = 8192: axis 0 on the global passes), each case
      with its plan (line cap, branches, launches per call, scratch bytes);
@@ -38,8 +43,9 @@ started together) and then:
      b = 8, and one float32 case, and B13 on "k2*se" at k = 9; B3 at B2's
      shape (n = 8760, k2, b = 9,
      beside B2's time over its m = 5 directions), at the distributed
-     gradient's b = 1, 8 and 16, on a ragged 1000 x 1001 block, for all six
-     kinds at n = 1000, b = 8, and one float32 case;
+     gradient's b = 1, 8 and 16 and at b = 17, on a ragged 1000 x 1001
+     block, for all six kinds at n = 1000, b = 8, and one float32 case,
+     each with support_share and tiles_skipped;
   2. irregular phase: the paper's workflow through the front door on one
      year of hourly-scale irregular sampling (n = 8760, the tile
      operator): GP.bind -> fit -> log_evidence -> predict at n* = 512 with
@@ -171,14 +177,16 @@ started together) and then:
      printed); and the stochastic objective (backend pinned, the same
      probes and epoch permutations) at n = 1024, 1-D and (n, 2).
 
-After the build, three lines give the registers, stack frame and spills
+After the build, four lines give the registers, stack frame and spills
 from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
 B12, and kinds 6 and 7, the product entry of B8 and B13 for d <= 2 and
-d <= 4: ptxas_value_sweep), of B10's line kernels (ptxas_ski_lines) and
-of B5's and B7's (ptxas_ski_lines_1d).
+d <= 4: ptxas_value_sweep), of B2's and B3's kernels (the value sweep's
+on their gradient entries: ptxas_tangent_sweep), of B10's line kernels (ptxas_ski_lines) and of
+B5's and B7's (ptxas_ski_lines_1d).
 
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
-non-finite result exits nonzero.  The last line of standard output is the
+non-finite result exits nonzero.  The line before the last gives the
+script's own seconds (script_s); the last line of standard output is the
 JSON object {"ok": true, "device": {...}}.
 
 Roofline bound per call: the larger of bytes / 3.35 TB/s (each input read
@@ -190,11 +198,11 @@ exp or division counts as one operation (a lower count than the hardware
 spends, so the bound stays a lower bound).  Per covariance entry: B1 and
 B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V, and B1
 counts only the entries that its inputs need: for k1 and k2 those inside
-the Wendland window (kernel_matvec.support_entries); B2
-counts the value and its closed-form gradient over the kind's natural
-slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles with V,
-since the m directions can be applied afterwards to the (NS, n1, b)
-result at a cost independent of n2.  B3 counts the value and gradient
+the Wendland window (kernel_matvec.support_entries), and so do B2 and
+B3.  B2 counts the value and its closed-form gradient over the kind's
+natural slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles
+with V, since the m directions can be applied afterwards to the (NS, n1,
+b) result at a cost independent of n2.  B3 counts the value and gradient
 (GRAD_OPS) and the cheaper of B2's contraction (2 NS b, the tensor
 cores) and projecting the NS gradients on its one direction first (2 NS,
 outside them) with 2 b for the one tile.  B8 counts the d factor values and
@@ -708,25 +716,12 @@ def kernel_phase(x, xstar, dev, rng, seed):
             x1 = x if n1 == N else xstar
             v = torch.tensor(rng.standard_normal((N, b)), device=dev)
             cases["tile_matvec"].append(b1_case(kind, p, x1, x, v, "theta"))
-        # B2: all m tangents of [alpha | 8 probes], m = 3 (k1) or 5 (k2)
-        m = pd.shape[0]
-        v = torch.tensor(rng.standard_normal((N, 9)), device=dev)
-        got = km.tile_stacked_tangent_matvec(kind, p, pd, x, x, v)
-        want = km.tile_stacked_tangent_matvec_plain(kind, p, pd, x, x, v)
-        torch.cuda.synchronize()
-        err, rel = errors(got, want)
-        entries = N * N
-        bms, by = bound(8.0 * (2 * N + N * 9 + m * N * 9 + 8 + 8 * m),
-                        entries * GRAD_OPS[kind],
-                        2.0 * entries * N_SLOTS[kind] * 9)
-        cases["tile_tangent"].append(dict(
-            kind=kind, n1=N, n2=N, b=9, m=m, max_abs_err=err,
-            max_rel_err=rel,
-            ms=time_ms(lambda: km.tile_stacked_tangent_matvec(
-                kind, p, pd, x, x, v), 10),
-            plain_ms=time_ms(lambda: km.tile_stacked_tangent_matvec_plain(
-                kind, p, pd, x, x, v), 3),
-            bound_ms=bms, bound_by=by))
+        # B2: all m tangents of [alpha | 8 probes], m = 3 (k1) or 5 (k2),
+        # and b = 1, 8 and 16, 17 (either side of the register switch)
+        for b in (9, 1, 8, 16, 17):
+            v = torch.tensor(rng.standard_normal((N, b)), device=dev)
+            cases["tile_tangent"].append(b2_case(kind, p, pd, x, x, v,
+                                                 "theta"))
         # B4: the predict cross block K(x, x*), (8760, 512)
         got = kt.tile_matrix(kind, p, x, xstar)
         want = kt.tile_matrix_plain(kind, p, x, xstar)
@@ -742,6 +737,8 @@ def kernel_phase(x, xstar, dev, rng, seed):
                              3),
             bound_ms=bms, bound_by=by))
     b1_extra_cases(cases, x, dev, rng)
+    b2_extra_cases(cases, x, dev, rng)
+    b2_stochastic_case(cases, dev, rng, seed)
     jvp_kernel_cases(cases, x, dev, rng)
     crossover = ski_kernel_cases(cases, dev, rng, seed)
     nd_kernel_cases(cases, dev, rng, seed)
@@ -802,15 +799,99 @@ def b1_extra_cases(cases, x, dev, rng):
     cases["tile_matvec"].extend(rows)
 
 
+def b2_case(kind, p, pd, x1, x2, v, case, plain_repeats=3):
+    """One B2 case against its plain version, timed, with the share of
+    entries inside the Wendland window (support_share; 1 for the kinds
+    without one) and the (stripe, tile) pairs its kernel skips on its own
+    grid (km.tangent_grid).  The bound counts the in-support entries
+    alone: the value and gradient (GRAD_OPS) and 2 NS b multiply-adds
+    with V each, the m directions applied to the (NS, n1, b) sums at a
+    cost independent of n2."""
+    n1, n2, b = x1.shape[0], x2.shape[0], v.shape[1]
+    m = pd.shape[0]
+    got = km.tile_stacked_tangent_matvec(kind, p, pd, x1, x2, v)
+    want = km.tile_stacked_tangent_matvec_plain(kind, p, pd, x1, x2, v)
+    torch.cuda.synchronize()
+    err, rel = errors(got, want)
+    del got, want
+    sup = km.support_entries(kind, p, x1, x2)
+    rows, cols = km.tangent_grid(kind, b)[:2]
+    pairs = -(-n1 // rows) * -(-n2 // cols)
+    kept = int(km.support_tiles(kind, p, x1, x2, rows, cols).shape[0])
+    bms, by = bound(8.0 * (n1 + n2 + n2 * b + m * n1 * b + 8 + 8 * m),
+                    sup * GRAD_OPS[kind],
+                    2.0 * sup * N_SLOTS.get(kind, 1) * b)
+    return dict(kind=kind, case=case, n1=n1, n2=n2, b=b, m=m,
+                t0=float(p[0]), max_abs_err=err, max_rel_err=rel,
+                support_share=sup / (n1 * n2), tiles_skipped=pairs - kept,
+                tiles=pairs, stripe_rows=rows,
+                ms=time_ms(lambda: km.tile_stacked_tangent_matvec(
+                    kind, p, pd, x1, x2, v), 10),
+                plain_ms=time_ms(
+                    lambda: km.tile_stacked_tangent_matvec_plain(
+                        kind, p, pd, x1, x2, v), plain_repeats),
+                bound_ms=bms, bound_by=by)
+
+
+def b2_extra_cases(cases, x, dev, rng):
+    """B2 beyond the workflow's directions: k2 with its window at the fit
+    box's edge, T0 = 2000 h (40% of the entries in support), b = 9; and
+    k2 on the same points unsorted with random dense pdots of m = 1 .. 5
+    rows (the kernel's projection is exact for any pdots)."""
+    wide = list(THETA["k2"])
+    wide[0] = math.log(2000.0)
+    th = torch.tensor(wide, dtype=torch.float64)
+    v = torch.tensor(rng.standard_normal((N, 9)), device=dev)
+    cases["tile_tangent"].append(b2_case(
+        "k2", ops.natural_params("k2", th).to(dev),
+        ops.natural_tangents("k2", th).to(dev), x, x, v, "t0_2000"))
+    p = ops.natural_params(
+        "k2", torch.tensor(THETA["k2"], dtype=torch.float64)).to(dev)
+    xu = x[torch.tensor(rng.permutation(N), device=dev)]
+    for m in range(1, 6):
+        pd = torch.tensor(rng.standard_normal((m, 8)), device=dev)
+        cases["tile_tangent"].append(b2_case("k2", p, pd, xu, xu, v,
+                                             "unsorted"))
+
+
+def b2_stochastic_case(cases, dev, rng, seed):
+    """B2 at the stochastic 1-D stage's shape: StochasticSolver's
+    tangent_matvecs on the whole record ("se", n = 65536, b = 9 =
+    [alpha | 8 probes], m = 1), against its plain version (one timed
+    repeat: each call of it evaluates 4.3e9 entries in 1024-row blocks)."""
+    x_np, _, _ = make_stochastic_data(seed, STOCHASTIC_N)
+    x = torch.tensor(x_np, device=dev)
+    th = torch.tensor(ROWS_THETA["se"], dtype=torch.float64)
+    v = torch.tensor(rng.standard_normal((STOCHASTIC_N, 9)), device=dev)
+    cases["tile_tangent"].append(b2_case(
+        "se", ops.natural_params("se", th).to(dev),
+        ops.natural_tangents("se", th).to(dev), x, x, v, "stochastic",
+        plain_repeats=1))
+
+
 def value_ptxas(log: str):
     """Registers, stack frame and spills of each value-sweep kernel from
     the -Xptxas -v build log: (dtype, kind id, B or NB); kinds 6 and 7
     are the product entry (B8, B13) for d <= 2 and d <= 4."""
     return ptxas_rows(
-        log, r"value_(narrow|wide)_kernelI([df])Li(\d+)ELi(\d+)E",
+        log, r"value_(narrow|wide)_kernelI([df])NS_\d+ValueEntryI[df]"
+        r"Li(\d+)EEELi(\d+)E",
         lambda m: dict(path=m.group(1), dtype="float64" if m.group(2) == "d"
                        else "float32", kind=int(m.group(3)),
                        width=int(m.group(4))))
+
+
+def tangent_ptxas(log: str):
+    """The same for B2 and B3: the value sweep's kernels on their
+    gradient entries (GradEntry, B2; JvpEntry, B3), (dtype, kind id, B or
+    NB)."""
+    return ptxas_rows(
+        log, r"value_(narrow|wide)_kernelI([df])NS_\d+(Grad|Jvp)EntryI"
+        r"[df]Li(\d+)EEELi(\d+)E",
+        lambda m: dict(kernel="B2" if m.group(3) == "Grad" else "B3",
+                       path=m.group(1), dtype="float64" if m.group(2) == "d"
+                       else "float32", kind=int(m.group(4)),
+                       width=int(m.group(5))))
 
 
 def ski_lines_ptxas(log: str, kernels=("rows_conv_2d", "cols_conv_2d")):
@@ -854,16 +935,16 @@ def ptxas_rows(log: str, pattern: str, describe):
     return list(rows.values())
 
 
-def jvp_bound(kind, n1, n2, b, dtype):
+def jvp_bound(kind, n1, n2, b, dtype, entries):
     """Roofline bound (ms, what bounds it) of B3: x1, x2, V, the output,
-    params and pdot moved once; per entry the value and gradient
+    params and pdot moved once; per needed entry (``entries``: for k1 and
+    k2 those inside the Wendland window) the value and gradient
     (GRAD_OPS) and the cheaper of contracting the NS gradient tiles with
     V (2 NS b, tensor cores) and projecting on pdot first (2 NS, outside
     them) with 2 b for the one tile; float32 every operation at 67
     TFLOP/s."""
     item = torch.finfo(dtype).bits // 8
     ns = N_SLOTS.get(kind, 1)
-    entries = n1 * n2
     n_bytes = item * (n1 + n2 + n2 * b + n1 * b + 16)
     grad = entries * GRAD_OPS[kind]
     if dtype == torch.float32:
@@ -881,11 +962,13 @@ def jvp_kernel_cases(cases, x, dev, rng):
     """B3 (one tangent direction, a random one in flat coordinates) at
     B2's shape (n = 8760, k2, b = 9), beside B2's time over its m
     directions; at the distributed gradient's b = 1 (alpha), 8 and 16
-    (the probes); on a ragged 1000 x 1001 block; all six kinds at
-    n = 1000, b = 8; one float32 case."""
+    (the probes), and at b = 17 (the tensor-core path); on a ragged
+    1000 x 1001 block; all six kinds at n = 1000, b = 8; one float32
+    case.  Each case gives its support_share and the (stripe, tile)
+    pairs its kernel skips (the value sweep's grid)."""
     b2 = next(r for r in cases["tile_tangent"] if r["kind"] == "k2")
     f64, f32 = torch.float64, torch.float32
-    shapes = ([("k2", N, N, b, f64) for b in (9, 1, 8, 16)]
+    shapes = ([("k2", N, N, b, f64) for b in (9, 1, 8, 16, 17)]
               + [("k2", 1000, 1001, 9, f64)]
               + [(k, 1000, 1000, 8, f64) for k in sorted(GRAD_OPS)]
               + [("k2", N, N, 9, f32)])
@@ -908,10 +991,15 @@ def jvp_kernel_cases(cases, x, dev, rng):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err, rel = errors(got, want)
-        bms, by = jvp_bound(kind, n1, n2, b, dtype)
+        sup = km.support_entries(kind, p, x1, x2)
+        pairs = -(-n1 // km.VALUE_ROWS) * -(-n2 // km.VALUE_COLS)
+        kept = int(km.support_tiles(kind, p, x1, x2).shape[0])
+        bms, by = jvp_bound(kind, n1, n2, b, dtype, sup)
         row = dict(kind=kind, n1=n1, n2=n2, b=b,
                    dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                   max_rel_err=rel, ms=time_ms(kern, 10),
+                   max_rel_err=rel, support_share=sup / (n1 * n2),
+                   tiles_skipped=pairs - kept, tiles=pairs,
+                   ms=time_ms(kern, 10),
                    plain_ms=time_ms(plain, 3), bound_ms=bms, bound_by=by)
         if (kind, n1, b, dtype) == ("k2", N, 9, f64):
             row["b2_ms_over_m"] = b2["ms"] / b2["m"]
@@ -1724,7 +1812,7 @@ def check_cases(cases, names):
 # the case that stands for each kernel in the summary line: the shape the
 # workflow launches most (k2, training CG / gradient, predict cross block)
 HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
-            "tile_tangent": dict(kind="k2"),
+            "tile_tangent": dict(kind="k2", case="theta", b=9),
             "tile_matrix": dict(kind="k2"),
             "ski_gram": dict(case="cell", b=9, dtype="float64"),
             "ski_tangent": dict(kind="k2", dtype="float64"),
@@ -2511,6 +2599,7 @@ def main(argv=None) -> int:
                     help="run only the kernel cases of B3 and the "
                          "distributed phase with its checks")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2524,6 +2613,7 @@ def main(argv=None) -> int:
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
     emit({"ptxas_value_sweep": value_ptxas(_cuda.KERNELS.ptxas_log)})
+    emit({"ptxas_tangent_sweep": tangent_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines": ski_lines_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines_1d": ski_lines_ptxas(_cuda.KERNELS.ptxas_log,
                                                 SKI_LINES_1D)})
@@ -2534,9 +2624,10 @@ def main(argv=None) -> int:
         return 0
     if args.stochastic:
         cases = {name: [] for name in SOURCES}
-        rows_kernel_cases(cases, dev, np.random.default_rng(args.seed + 2),
-                          args.seed)
-        check_cases(cases, ROWS_KERNELS)
+        rng = np.random.default_rng(args.seed + 2)
+        rows_kernel_cases(cases, dev, rng, args.seed)
+        b2_stochastic_case(cases, dev, rng, args.seed)
+        check_cases(cases, ROWS_KERNELS + ("tile_tangent",))
         st = stochastic_phase(args.seed)
         report_small_input_checks(stochastic_small_input_checks(dev))
         if args.json:
@@ -2544,6 +2635,7 @@ def main(argv=None) -> int:
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(dict(device=smi, cases=cases,
                                             stochastic=st), indent=1))
+        emit({"script_s": time.perf_counter() - t_start})
         return 0
     if args.distributed:
         cases = {name: [] for name in SOURCES}
@@ -2567,6 +2659,7 @@ def main(argv=None) -> int:
             path.parent.mkdir(parents=True, exist_ok=True)
             path.write_text(json.dumps(dict(device=smi, cases=cases,
                                             distributed=dist_out), indent=1))
+        emit({"script_s": time.perf_counter() - t_start})
         return 0
     if args.nd:
         cases = {name: [] for name in SOURCES}
@@ -2630,6 +2723,7 @@ def main(argv=None) -> int:
             distributed=dist_out,
             sequential_vs_bank=seq_vs_bank, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
+    emit({"script_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,14 +6,15 @@ TREE is the root of a checkout (this one, or a parent commit unpacked
 with ``git archive`` into a git-ignored directory); the script imports
 that tree's ``repro_torch`` and ``chip_smoke.py``, builds its kernels and
 prints one JSON line: LABEL and the time per call (``chip_smoke.time_ms``,
-median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5), B3
-(k2, b = 9), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
+median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5, and
+at the stochastic 1-D stage's shape: "se", n = 65536, b = 9, m = 1), B3
+(k2, b = 9 and 1), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
 b = 9), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
 cell of ``chip_smoke.py``, B10 (its product-SKI cell, b = 1, 9 and 256)
 and B11 (m = 2, b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
 (b = 2048, "se*matern32", k = 9 and 256), and B5 at b = 256.  The keys
-ending in ``_dev`` give the card's time alone for B5 (b = 9 and 256), B6,
-B7, B8, B10 and B13: 20 calls captured in one CUDA graph and replayed
+ending in ``_dev`` give the card's time alone for B2, B3 (b = 9), B5
+(b = 9 and 256), B6, B7, B8, B10 and B13: 20 calls captured in one CUDA graph and replayed
 (CUDA events around the replay, over 20), so the host's work per call,
 which the other keys include, drops out.  Compare
 two commits only within one call, in turns (parent, change, change,
@@ -87,6 +88,21 @@ def main(tree: str, label: str) -> None:
         lambda: km.tile_stacked_tangent_matvec("k2", p2, pd, x, x, v9), 10)
     res["B3_k2_b9"] = cs.time_ms(
         lambda: km.tile_jvp("k2", p2, pdot, x, x, v9), 10)
+    res["B2_k2_m5_dev"] = graph_ms(
+        lambda: km.tile_stacked_tangent_matvec("k2", p2, pd, x, x, v9))
+    res["B3_k2_b9_dev"] = graph_ms(
+        lambda: km.tile_jvp("k2", p2, pdot, x, x, v9))
+    v1 = v9[:, :1].contiguous()
+    res["B3_k2_b1"] = cs.time_ms(
+        lambda: km.tile_jvp("k2", p2, pdot, x, x, v1), 10)
+    xs, _, _ = cs.make_stochastic_data(0, cs.STOCHASTIC_N)
+    xs = torch.tensor(xs, device=dev)
+    pse = ops.natural_params("se", t64(cs.ROWS_THETA["se"])).to(dev)
+    pdse = ops.natural_tangents("se", t64(cs.ROWS_THETA["se"])).to(dev)
+    vs9 = torch.tensor(rng.standard_normal((cs.STOCHASTIC_N, 9)), device=dev)
+    res["B2_se_stochastic"] = cs.time_ms(
+        lambda: km.tile_stacked_tangent_matvec("se", pse, pdse, xs, xs, vs9),
+        3)
     kinds = ("se", "matern32")
     th = t64(cs.ND_THETA["se*matern32"])
     pn = ops.natural_params_nd("se*matern32", th).to(dev)

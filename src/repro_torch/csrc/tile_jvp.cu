@@ -5,40 +5,29 @@
 // Replaces matvec_tangent_pallas (repro/kernels/kernel_matvec.py) and its
 // body _matvec_tangent_kernel, which takes jax.jvp of the tile inside the
 // kernel.  Here each entry evaluates the closed-form gradient of k over the
-// kind's natural slots (tile_grad in tile_fns.cuh, the derivatives B2
-// uses) and projects it on pdot with one register dot product.  The sweep
-// is tile_sweep_kernel in tangent mode with the direction count fixed at 1
-// at compile time (tile_sweep.cuh): the grid of row stripes x column
-// segments and the fixed-order segment reduce are B2's, so every run gives
-// the same bits.  Plain C interface for ctypes, as in tile_matvec.cu; the
-// signature is B2's with m = 1.
-#include "tile_sweep.cuh"
-
-extern "C" int tile_jvp_max_cols(int elem_bytes) {
-  return tile::sweep_max_cols(1, (size_t)elem_bytes);
-}
+// kind's natural slots (the derivatives B2 uses) and projects it on pdot in
+// registers (JvpEntry, tangent_sweep.cuh); the value sweep's kernels
+// contract it with V: in registers at b <= 16, on the fp64 tensor cores
+// above, skipping the tiles outside k1's and k2's Wendland window, on the
+// value sweep's grid of 64-row stripes x column segments with its
+// fixed-order segment reduce, so every run gives the same bits.  What bounds
+// it: the fp64 sincos and exp of the gradient per in-support entry.  Plain
+// C interface for ctypes, as in tile_matvec.cu; the signature is B2's with
+// m = 1, the float32 entry point is tile_jvp_f32.cu, and a launch takes
+// up to tile_matvec_max_cols columns of V, as B1's.
+#include "tangent_sweep.cuh"
 
 // pdot: (N_PARAM_SLOTS,) and m must be 1; part: the (segs, n1, b) scratch,
-// unused (may be null) when segs == 1.
+// unused (may be null) when segs == 1; seg_cols a multiple of the
+// 32-column tile.
 extern "C" int tile_jvp_f64(int kind, const void* params, const void* pdot,
                             int m, const void* x1, int n1, const void* x2,
                             int n2, const void* v, int ldv, int b,
                             int seg_cols, int segs, void* part, void* out,
                             int ldo, void* stream) {
-  return tile::launch_sweep<double, 1>(
+  return tile::launch_jvp_sweep<double>(
       kind, (const double*)params, (const double*)pdot, m,
       (const double*)x1, n1, (const double*)x2, n2, (const double*)v, ldv, b,
       seg_cols, segs, (double*)part, (double*)out, ldo,
       (cudaStream_t)stream);
-}
-
-extern "C" int tile_jvp_f32(int kind, const void* params, const void* pdot,
-                            int m, const void* x1, int n1, const void* x2,
-                            int n2, const void* v, int ldv, int b,
-                            int seg_cols, int segs, void* part, void* out,
-                            int ldo, void* stream) {
-  return tile::launch_sweep<float, 1>(
-      kind, (const float*)params, (const float*)pdot, m, (const float*)x1,
-      n1, (const float*)x2, n2, (const float*)v, ldv, b, seg_cols, segs,
-      (float*)part, (float*)out, ldo, (cudaStream_t)stream);
 }

@@ -1,66 +1,36 @@
-// Row-stripe sweep shared by the stacked tangent matvec (B2) and the
-// one-direction tangent matvec (B3): out[i] = K_i(x1, x2) @ V for i < m,
-// where K_i = sum_s pdots[i, s] dK/dp[s].  The direction bound DIRS is a
-// template parameter: B2 takes MAX_DIRS (m <= 5 at run time), B3 takes 1,
-// so its projection is one register dot per entry and its m a constant.
-// The covariance matvec (B1) and the row slab (B12) have their own sweep,
-// value_sweep.cuh; it shares split_ok's rule, launch_split and
-// segments_reduce_kernel with this one, and the N-D sweeps
-// (tile_sweep_nd.cuh) share contract_tile and write_stripe too.
+// The pieces the sweeps share: the column split of a sweep's grid
+// (split_ok, launch_split, segments_reduce_kernel), the kind dispatch of
+// the 1-D families (kind_switch), and for the N-D tangent sweep
+// (tile_sweep_nd.cuh, B9) its shared-memory tile contraction
+// (contract_tile, write_stripe).  B1, B3, B8, B12 and B13 run the value
+// sweep (value_sweep.cuh), B2 and B3 on the gradient entries of
+// tangent_sweep.cuh.
 //
-// Replaces the Pallas kernels _matvec_stacked_tangent_kernel and
-// _matvec_tangent_kernel of repro/kernels/kernel_matvec.py.  There the
-// grid's sequential column axis revisits one output block.  Here the grid
-// is row stripes x column segments: each block owns a stripe of SWEEP_ROWS
-// output rows and sweeps its segment of x2 in a loop.  One segment per
-// stripe (no two blocks write the same output) when the stripes alone fill
-// the card; otherwise the column axis is cut into as many segments as
-// bring the card to a few blocks per SM (the wrapper picks them,
-// kernel_matvec.row_segments).  Then each block writes its partial stripe
-// into a (segments, m n1, b) scratch and segments_reduce_kernel sums the
-// segments in a fixed order.  No atomics: the result is the same from run
-// to run.
-//
-// Per column tile the block evaluates the m SWEEP_ROWS x SWEEP_COLS
-// tangent tiles ONCE into shared memory, then contracts them with V in
-// chunks of SWEEP_VCOLS columns.  The (m, SWEEP_ROWS, b) accumulators also
-// live in shared memory, so a wide V costs one gradient evaluation per
-// entry, not one per chunk, and no accumulator sits in registers (nothing
-// to spill at m = 5).
-//
-// What bounds it on an H100: nothing is read from device memory beyond x1,
-// x2, V, the output and the scratch (O(n b) bytes), so the kernel is bound
-// by operations: the fp64 sin/cos/exp of the gradient evaluation at small
-// b, the fp64 FMAs of the contraction (two shared-memory loads each) at
-// large b.  Ragged edges are masked in the kernel; nothing is padded.
+// The grid of every sweep is row stripes x column segments: each block
+// owns a stripe of output rows and sweeps its segment of x2 in a loop.
+// One segment per stripe (no two blocks write the same output) when the
+// stripes alone fill the card; otherwise the column axis is cut into as
+// many segments as bring the card to a few blocks per SM (the wrapper
+// picks them, kernel_matvec.row_segments).  Then each block writes its
+// partial stripe into a (segments, m n1, b) scratch and
+// segments_reduce_kernel sums the segments in a fixed order.  No atomics:
+// the result is the same from run to run.
 #pragma once
+
+#include <type_traits>
 
 #include "tile_fns.cuh"
 
 namespace tile {
 
+// B9's grid and shared-memory tiles (SWEEP_THREADS also the segment
+// reduce's block)
 constexpr int SWEEP_THREADS = 256;
 constexpr int SWEEP_ROWS = 32;
 constexpr int SWEEP_COLS = 64;
 constexpr int SWEEP_VCOLS = 64;
 constexpr int SMEM_LIMIT = 232448;  // opt-in dynamic shared memory per block
 constexpr int MAX_COLS = 512;       // V columns per launch
-
-// Shared layout in elements: x2 tile | K tiles (m, ROWS, COLS + 1) |
-// V chunk (COLS, vw + 1) | accumulators (m, ROWS, b), vw = min(b, VCOLS).
-inline size_t sweep_smem_bytes(int m, int b, size_t elem) {
-  int vw = b < SWEEP_VCOLS ? b : SWEEP_VCOLS;
-  size_t n = SWEEP_COLS + (size_t)m * SWEEP_ROWS * (SWEEP_COLS + 1) +
-             (size_t)SWEEP_COLS * (vw + 1) + (size_t)m * SWEEP_ROWS * b;
-  return n * elem;
-}
-
-// Widest V (columns) that one launch takes for m directions.
-inline int sweep_max_cols(int m, size_t elem) {
-  int b = MAX_COLS;
-  while (b > 1 && sweep_smem_bytes(m, b, elem) > (size_t)SMEM_LIMIT) --b;
-  return b;
-}
 
 // Contract the m tiles in ks ((m, ROWS, COLS + 1) rows) with rows
 // c0 .. c0 + COLS of V into acc (m, ROWS, b), one chunk of
@@ -162,123 +132,18 @@ inline int launch_split(Launch launch, int m, int n1, int b, int segs,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int KIND, int DIRS>
-__global__ void __launch_bounds__(SWEEP_THREADS)
-tile_sweep_kernel(const T* __restrict__ params, const T* __restrict__ pdots,
-                  int m_arg, const T* __restrict__ x1, int n1,
-                  const T* __restrict__ x2, int n2, const T* __restrict__ v,
-                  int ldv, int b, int seg_cols, T* __restrict__ out,
-                  int ldo, size_t seg_stride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // one direction is a compile-time m (B3); otherwise m <= DIRS
-  const int m = DIRS == 1 ? 1 : m_arg;
-  constexpr int NS = kind_slots<KIND>();
-  const int ks_stride = SWEEP_COLS + 1;
-  const int vw = b < SWEEP_VCOLS ? b : SWEEP_VCOLS;
-  const int vs_stride = vw + 1;
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* ks = xs + SWEEP_COLS;
-  T* vs = ks + m * SWEEP_ROWS * ks_stride;
-  T* acc = vs + SWEEP_COLS * vs_stride;
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * SWEEP_ROWS;
-  const int c_begin = blockIdx.y * seg_cols;
-  const int c_end = min(n2, c_begin + seg_cols);
-
-  T p[N_PARAM_SLOTS];
-#pragma unroll
-  for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
-  T pd[DIRS][MAX_SLOTS];
-#pragma unroll
-  for (int i = 0; i < DIRS; ++i)
-#pragma unroll
-    for (int s = 0; s < MAX_SLOTS; ++s)
-      pd[i][s] = (i < m && s < NS) ? pdots[i * N_PARAM_SLOTS + s] : T(0);
-
-  const int n_acc = m * SWEEP_ROWS * b;
-  for (int e = tid; e < n_acc; e += SWEEP_THREADS) acc[e] = T(0);
-
-  for (int c0 = c_begin; c0 < c_end; c0 += SWEEP_COLS) {
-    __syncthreads();  // the previous tile's readers are done
-    if (tid < SWEEP_COLS) xs[tid] = (c0 + tid < c_end) ? x2[c0 + tid] : T(0);
-    __syncthreads();
-
-    // evaluate the m tangent tiles once
-    for (int e = tid; e < SWEEP_ROWS * SWEEP_COLS; e += SWEEP_THREADS) {
-      const int r = e / SWEEP_COLS;
-      const int c = e % SWEEP_COLS;
-      const bool ok = (row0 + r < n1) && (c0 + c < c_end);
-      const T dt = ok ? x1[row0 + r] - xs[c] : T(0);
-      T g[MAX_SLOTS];
-#pragma unroll
-      for (int s = 0; s < MAX_SLOTS; ++s) g[s] = T(0);
-      if (ok) tile_grad<T, KIND>(dt, p, g);
-#pragma unroll
-      for (int i = 0; i < DIRS; ++i) {
-        if (i < m) {
-          T kt = T(0);
-#pragma unroll
-          for (int s = 0; s < NS; ++s) kt += pd[i][s] * g[s];
-          ks[(i * SWEEP_ROWS + r) * ks_stride + c] = kt;
-        }
-      }
-    }
-    __syncthreads();
-
-    contract_tile<T>(ks, vs, acc, v, ldv, b, m, c0, c_end);
-  }
-  write_stripe<T>(acc, out + blockIdx.y * seg_stride, ldo, b, m, row0, n1);
-}
-
-template <typename T, int KIND, int DIRS>
-static int launch_sweep_kind(const T* params, const T* pdots, int m,
-                             const T* x1, int n1, const T* x2, int n2,
-                             const T* v, int ldv, int b, int seg_cols,
-                             int segs, T* part, T* out, int ldo,
-                             cudaStream_t stream) {
-  const size_t smem = sweep_smem_bytes(m, b, sizeof(T));
-  auto fn = tile_sweep_kernel<T, KIND, DIRS>;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n1 + SWEEP_ROWS - 1) / SWEEP_ROWS, segs);
-  return launch_split<T>(
-      [&](T* dst, int ldd, size_t seg_stride) {
-        fn<<<grid, SWEEP_THREADS, smem, stream>>>(
-            params, pdots, m, x1, n1, x2, n2, v, ldv, b, seg_cols, dst, ldd,
-            seg_stride);
-      },
-      m, n1, b, segs, part, out, ldo, stream);
-}
-
-#define SWEEP_ARGS params, pdots, m, x1, n1, x2, n2, v, ldv, b, seg_cols, \
-    segs, part, out, ldo, stream
-
-// DIRS: the most tangent directions the kernel takes (B2 MAX_DIRS, B3 1).
-template <typename T, int DIRS = MAX_DIRS>
-static int launch_sweep(int kind, const T* params, const T* pdots, int m,
-                        const T* x1, int n1, const T* x2, int n2, const T* v,
-                        int ldv, int b, int seg_cols, int segs, T* part,
-                        T* out, int ldo, cudaStream_t stream) {
-  if (n1 <= 0 || b <= 0 || m <= 0 || m > DIRS || b > MAX_COLS ||
-      !split_ok(n2, seg_cols, segs, part) ||
-      sweep_smem_bytes(m, b, sizeof(T)) > (size_t)SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
+// f(std::integral_constant<int, KIND>()) for the 1-D family id kind.
+template <typename F>
+static int kind_switch(int kind, F&& f) {
   switch (kind) {
-    case K1: return launch_sweep_kind<T, K1, DIRS>(SWEEP_ARGS);
-    case K2: return launch_sweep_kind<T, K2, DIRS>(SWEEP_ARGS);
-    case SE: return launch_sweep_kind<T, SE, DIRS>(SWEEP_ARGS);
-    case MATERN12:
-      return launch_sweep_kind<T, MATERN12, DIRS>(SWEEP_ARGS);
-    case MATERN32:
-      return launch_sweep_kind<T, MATERN32, DIRS>(SWEEP_ARGS);
-    case MATERN52:
-      return launch_sweep_kind<T, MATERN52, DIRS>(SWEEP_ARGS);
+    case K1: return f(std::integral_constant<int, K1>());
+    case K2: return f(std::integral_constant<int, K2>());
+    case SE: return f(std::integral_constant<int, SE>());
+    case MATERN12: return f(std::integral_constant<int, MATERN12>());
+    case MATERN32: return f(std::integral_constant<int, MATERN32>());
+    case MATERN52: return f(std::integral_constant<int, MATERN52>());
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-#undef SWEEP_ARGS
 
 }  // namespace tile

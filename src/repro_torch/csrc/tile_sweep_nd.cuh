@@ -11,11 +11,11 @@
 // and each direction is the product rule over those.
 //
 // Layout: x1 (n1, d) and x2 (n2, d) row-major, params (d, 8), pdots
-// (m, d, 8).  The sweep is the one of tile_sweep.cuh (a grid of stripes of
-// SWEEP_ROWS output rows x column segments, each block's segment of x2 in
-// a loop, the tiles evaluated once into shared memory and contracted with
-// V in chunks, the segments' partial stripes summed in a fixed order; no
-// atomics), with two changes:
+// (m, d, 8).  The grid is tile_sweep.cuh's (stripes of SWEEP_ROWS output
+// rows x column segments, each block's segment of x2 in a loop, the
+// segments' partial stripes summed in a fixed order; no atomics); the m
+// tangent tiles are evaluated once into shared memory and contracted with
+// V in chunks (contract_tile), and:
 //   * the family of each axis is dispatched at run time inside the tile
 //     evaluation (a switch on a uniform value, no divergence), so one
 //     kernel takes every tuple of families: templating on the tuple would
@@ -25,8 +25,7 @@
 // It takes d <= MAX_AXES factors and m <= MAX_DIRS_ND directions; the C
 // entry points refuse more.  Ragged edges are masked; nothing is padded.
 //
-// What bounds it on an H100: as in tile_sweep.cuh, nothing is read from
-// device memory beyond x1, x2, V and the output (O(n (d + b)) bytes), so
+// What bounds it on an H100: nothing is read from device memory beyond x1, x2, V and the output (O(n (d + b)) bytes), so
 // it is bound by operations: d factor values and gradients (fp64 exp, and
 // sin/cos for k1/k2) per entry at small b, the fp64 FMAs of the
 // contraction at large b.  The design shares one evaluation of all d

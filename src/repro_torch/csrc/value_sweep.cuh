@@ -17,7 +17,9 @@
 // - Narrow V (b <= VALUE_NARROW_MAX: every CG, SLQ and Lanczos launch,
 //   b = 1, 8, 9) is bound by the fp64 evaluation of k (sin, exp and
 //   divisions).  value_narrow_kernel evaluates and contracts in registers:
-//   lane l of each warp owns rows l and l + 32 of the stripe, the block's
+//   lane l of each warp owns rows l and l + 32 of the stripe (row l alone
+//   of a 32-row stripe where an entry's NS values times B would hold more
+//   than 16 accumulators per row: B2's gradient slots), the block's
 //   eight warps take turns over the segment's column tiles, and for each
 //   column the x2 value(s) and the V row are read from shared memory as a
 //   broadcast, k(r, c) is formed in a register and multiply-added at once
@@ -52,8 +54,13 @@
 //   no support), and neither do the products (no tile skip; a k1 or k2
 //   factor is 0 before its sin and exp outside its window).
 //
-// The entry: one family is a template parameter (ValueEntry<T, KIND>,
-// x1 and x2 one coordinate each).  The products are two more "kinds",
+// The entry: the kernels take an entry type.  Each gives NS values per
+// (x1, x2) pair, and the narrow kernel keeps NS x B accumulators per row
+// and, for an entry that asks for it (PROJECT), projects the NS slot sums
+// on the m rows of pdots once per output row as it writes them.  The covariance has NS = 1: one family
+// is ValueEntry<T, KIND>, x1 and x2 one coordinate each.  The tangent
+// sweeps B2 and B3 run the same kernels on the gradient entries of
+// tangent_sweep.cuh.  The products are two more "kinds",
 // VALUE_PRODUCT2 for d <= 2 (the (n, 2) points of the main path) and
 // VALUE_PRODUCT4 for d <= MAX_AXES (ProductEntry): each point carries 2 or
 // MAX_AXES coordinate registers (d of them used), each axis's family
@@ -94,10 +101,21 @@ __host__ __device__ constexpr bool has_support() {
   return KIND == K1 || KIND == K2;
 }
 
-// Coordinates per point.
-template <int KIND>
-__host__ __device__ constexpr int value_dims() {
-  return KIND == VALUE_PRODUCT2 ? 2 : (KIND == VALUE_PRODUCT4 ? MAX_AXES : 1);
+// Rows per lane of the narrow kernel for an entry of ns values at width b:
+// two while a row's ns b accumulators stay <= 16 (every NS = 1 entry),
+// else one, so that B2's gradient slots (k2: 5 b) stay in registers.
+__host__ __device__ constexpr int narrow_rpt(int ns, int b) {
+  return ns * b <= 16 ? 2 : 1;
+}
+
+// Blocks per SM the narrow kernel asks for: two (<= 128 registers) while a
+// lane holds <= 18 accumulators over two rows, or <= 45 in one row (B2's
+// gradient slots up to k2 at b = 9: spilling cold values of the evaluation
+// costs less than half the SM's warps, PERF.md), else one (no cap below
+// 255).
+__host__ __device__ constexpr int narrow_blocks(int ns, int b) {
+  return narrow_rpt(ns, b) == 2 ? (2 * ns * b <= 18 ? 2 : 1)
+                                : (ns * b <= 45 ? 2 : 1);
 }
 
 // |x| <= VALUE_BIG keeps every difference of two such values finite.
@@ -219,30 +237,47 @@ __device__ __forceinline__ T axis_value(int kind, T dt,
   }
 }
 
+// An entry type gives D (coordinates per point), NS (values per pair),
+// PROJECT (the narrow kernel writes out[i] = sum_s pdots[i, s] S[s] for
+// i < m, S the NS slot sums; else out = S, NS = 1), SUPPORT (a Wendland
+// window of half-width t0() that the kernels may skip outside),
+// load(params, pdots, d, code), called once per block, and e(x1, x2, g),
+// which writes the pair's NS values to g.
+
 // The entry k(x1, x2) of one family, its constants in registers.
 template <typename T, int KIND>
 struct ValueEntry {
+  static constexpr int D = 1;
+  static constexpr int NS = 1;
+  static constexpr bool PROJECT = false;
+  static constexpr bool SUPPORT = has_support<KIND>();
   T p[N_PARAM_SLOTS], q[N_PARAM_SLOTS];
-  __device__ __forceinline__ void load(const T* __restrict__ params, int,
-                                       int) {
+  __device__ __forceinline__ void load(const T* __restrict__ params,
+                                       const T*, int, int) {
 #pragma unroll
     for (int s = 0; s < N_PARAM_SLOTS; ++s) p[s] = params[s];
     value_consts<T, KIND>(p, q);
   }
-  __device__ __forceinline__ T operator()(const T (&x1)[1],
-                                          const T (&x2)[1]) const {
-    return value_or_zero<T, KIND>(x1[0] - x2[0], p, q);
+  __device__ __forceinline__ T t0() const { return p[0]; }
+  __device__ __forceinline__ void operator()(const T (&x1)[1],
+                                             const T (&x2)[1],
+                                             T (&g)[1]) const {
+    g[0] = value_or_zero<T, KIND>(x1[0] - x2[0], p, q);
   }
 };
 
-// The product entry prod_{a < d} k_a(x1[a] - x2[a]), d <= D; params
+// The product entry prod_{a < d} k_a(x1[a] - x2[a]), d <= DIMS; params
 // (d, 8).
-template <typename T, int D>
+template <typename T, int DIMS>
 struct ProductEntry {
+  static constexpr int D = DIMS;
+  static constexpr int NS = 1;
+  static constexpr bool PROJECT = false;
+  static constexpr bool SUPPORT = false;
   T c[D][AXIS_CONSTS];
   int d, code;
-  __device__ __forceinline__ void load(const T* __restrict__ params, int d_,
-                                       int code_) {
+  __device__ __forceinline__ void load(const T* __restrict__ params,
+                                       const T*, int d_, int code_) {
     d = d_;
     code = code_;
 #pragma unroll
@@ -250,13 +285,15 @@ struct ProductEntry {
       axis_consts<T>(a < d ? axis_kind(code, a) : SE,
                      params + (a < d ? a : 0) * N_PARAM_SLOTS, c[a]);
   }
-  __device__ __forceinline__ T operator()(const T (&x1)[D],
-                                          const T (&x2)[D]) const {
+  __device__ __forceinline__ T t0() const { return T(0); }
+  __device__ __forceinline__ void operator()(const T (&x1)[D],
+                                             const T (&x2)[D],
+                                             T (&g)[1]) const {
     T k = T(1);
 #pragma unroll
     for (int a = 0; a < D; ++a)
       if (a < d) k *= axis_value<T>(axis_kind(code, a), x1[a] - x2[a], c[a]);
-    return k;
+    g[0] = k;
   }
 };
 
@@ -267,13 +304,13 @@ struct ValueEntry<T, VALUE_PRODUCT4> : ProductEntry<T, MAX_AXES> {};
 
 // The lane's rows of the stripe: xr[i][a] = coordinate a of row row0 +
 // lane + 32 i (x1 row stride dd; 0 past n1 and past d).
-template <typename T, int D>
+template <typename T, int D, int RPT>
 __device__ __forceinline__ void load_stripe(const T* __restrict__ x1,
                                             int n1, int row0, int dd, int d,
-                                            T (&xr)[VALUE_RPT][D]) {
+                                            T (&xr)[RPT][D]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < VALUE_RPT; ++i) {
+  for (int i = 0; i < RPT; ++i) {
     const int r = row0 + lane + 32 * i;
 #pragma unroll
     for (int a = 0; a < D; ++a)
@@ -299,16 +336,16 @@ __device__ __forceinline__ void warp_range(T& lo, T& hi, bool& fin) {
 // The [lo, hi] of the stripe's x1 over its valid rows (xr from
 // load_stripe), and whether all of them lie within +-VALUE_BIG; every warp
 // computes the same.
-template <typename T>
+template <typename T, int RPT>
 __device__ __forceinline__ void stripe_range(int n1, int row0,
-                                             const T (&xr)[VALUE_RPT][1],
+                                             const T (&xr)[RPT][1],
                                              T& lo, T& hi, bool& fin) {
   const int lane = threadIdx.x & 31;
   lo = T(INFINITY);
   hi = T(-INFINITY);
   fin = true;
 #pragma unroll
-  for (int i = 0; i < VALUE_RPT; ++i) {
+  for (int i = 0; i < RPT; ++i) {
     if (row0 + lane + 32 * i < n1) {
       lo = fmin(lo, xr[i][0]);
       hi = fmax(hi, xr[i][0]);
@@ -401,54 +438,76 @@ __device__ __forceinline__ void stage_narrow(T* st,
   }
 }
 
-template <typename T, int KIND, int B>
-constexpr size_t narrow_smem_bytes() {
-  return sizeof(T) * VALUE_WARPS * 2 * VALUE_COLS * (value_dims<KIND>() + B) +
-         VALUE_LIST_BYTES;
+// Shared elements of the narrow kernel before the kept-tile list: the
+// warps' stages, reused at the end for the warps' partial stripes
+// (VALUE_WARPS, B, rows) and, for a projecting entry, the stripe's slot
+// sums (NS, B, rows).
+template <typename Entry, int B>
+__host__ __device__ constexpr int narrow_elems() {
+  constexpr int rows = 32 * narrow_rpt(Entry::NS, B);
+  constexpr int stages = VALUE_WARPS * 2 * VALUE_COLS * (Entry::D + B);
+  constexpr int red =
+      (VALUE_WARPS + (Entry::PROJECT ? Entry::NS : 0)) * B * rows;
+  return stages > red ? stages : red;
 }
 
-// Two blocks per SM up to B = 9 (<= 128 registers; ptxas spills a few
-// cold values of k1 and k2 at B = 8 and 9): at one block of eight warps
-// the fp64 evaluation stalls on its own latency.  B = 16 keeps its
-// registers (one block per SM, no spills).
-template <typename T, int KIND, int B>
-__global__ void __launch_bounds__(VALUE_THREADS, B <= 9 ? 2 : 1)
+template <typename T, typename Entry, int B>
+constexpr size_t narrow_smem_bytes() {
+  return sizeof(T) * narrow_elems<Entry, B>() + VALUE_LIST_BYTES;
+}
+
+// Two blocks per SM up to narrow_blocks' accumulator counts (B <= 9 for
+// the value entries; <= 128 registers, ptxas spills a few cold values of
+// k1 and k2 at B = 8 and 9): at one block of eight warps the fp64
+// evaluation stalls on its own latency.  Wider ones keep their registers
+// (one block per SM).  Lane l owns rows l + 32 i, i < RPT, of a
+// stripe of 32 RPT rows (narrow_rpt).  A projecting entry's NS slot sums
+// are projected on pdots (m, N_PARAM_SLOTS) as they are written:
+// out[i, r, j] = sum_s pdots[i, s] S[s, r, j], out (m, n1, ldo).
+template <typename T, typename Entry, int B>
+__global__ void __launch_bounds__(VALUE_THREADS,
+                                  narrow_blocks(Entry::NS, B))
 value_narrow_kernel(int d, int code, const T* __restrict__ params,
+                    const T* __restrict__ pdots, int m,
                     const T* __restrict__ x1, int n1,
                     const T* __restrict__ x2, int n2,
                     const T* __restrict__ v, int ldv, int w, int seg_cols,
                     T* __restrict__ out, int ldo, size_t seg_stride) {
-  constexpr int D = value_dims<KIND>();
-  constexpr bool SUPPORT = has_support<KIND>();
+  constexpr int D = Entry::D;
+  constexpr int NS = Entry::NS;
+  constexpr bool SUPPORT = Entry::SUPPORT;
+  constexpr int RPT = narrow_rpt(NS, B);
+  constexpr int ROWS = 32 * RPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int STAGE = VALUE_COLS * (D + B);
   T* const smem = reinterpret_cast<T*>(smem_raw);
-  int* const list =
-      reinterpret_cast<int*>(smem + VALUE_WARPS * 2 * STAGE);
+  int* const list = reinterpret_cast<int*>(smem + narrow_elems<Entry, B>());
   int* const flags = list + VALUE_LIST;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row0 = blockIdx.x * VALUE_ROWS;
+  const int row0 = blockIdx.x * ROWS;
   const int c_begin = blockIdx.y * seg_cols;
   const int c_end = min(n2, c_begin + seg_cols);
   const int n_tiles = (c_end - c_begin + VALUE_COLS - 1) / VALUE_COLS;
   const int dd = D == 1 ? 1 : d;  // the coordinates' row stride
 
-  ValueEntry<T, KIND> ent;
-  ent.load(params, d, code);
+  Entry ent;
+  ent.load(params, pdots, d, code);
 
-  T xr[VALUE_RPT][D];
-  load_stripe<T, D>(x1, n1, row0, dd, d, xr);
+  T xr[RPT][D];
+  load_stripe<T, D, RPT>(x1, n1, row0, dd, d, xr);
   T lo1 = T(0), hi1 = T(0);
   bool fin1 = false;
-  if constexpr (SUPPORT) stripe_range<T>(n1, row0, xr, lo1, hi1, fin1);
+  if constexpr (SUPPORT) stripe_range<T, RPT>(n1, row0, xr, lo1, hi1, fin1);
 
-  T acc[VALUE_RPT][B];
+  T acc[RPT][NS][B];
 #pragma unroll
-  for (int i = 0; i < VALUE_RPT; ++i)
+  for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int j = 0; j < B; ++j) acc[i][j] = T(0);
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int j = 0; j < B; ++j) acc[i][s][j] = T(0);
 
   T* const st = smem + warp * 2 * STAGE;
   for (int t0 = 0; t0 < n_tiles; t0 += VALUE_LIST) {
@@ -457,7 +516,7 @@ value_narrow_kernel(int d, int code, const T* __restrict__ params,
     int n_kept = nt;
     if constexpr (SUPPORT)
       n_kept = kept_tiles(list, flags, x2, cb, c_end, nt, lo1, hi1, fin1,
-                          ent.p[0]);
+                          ent.t0());
     // the first column of the k-th kept tile
     auto col = [&](int k) {
       return cb + (SUPPORT ? list[k] : k) * VALUE_COLS;
@@ -485,10 +544,15 @@ value_narrow_kernel(int d, int code, const T* __restrict__ params,
 #pragma unroll
         for (int a = 0; a < D; ++a) xc[a] = xs[a * VALUE_COLS + c];
 #pragma unroll
-        for (int i = 0; i < VALUE_RPT; ++i) {
-          const T kv = ent(xr[i], xc);
+        for (int i = 0; i < RPT; ++i) {
+          T g[NS];
+          ent(xr[i], xc, g);
 #pragma unroll
-          for (int j = 0; j < B; ++j) acc[i][j] += kv * vs[c * B + j];
+          for (int j = 0; j < B; ++j) {
+            const T vj = vs[c * B + j];
+#pragma unroll
+            for (int q = 0; q < NS; ++q) acc[i][q][j] += g[q] * vj;
+          }
         }
       }
       __syncwarp();
@@ -496,27 +560,50 @@ value_narrow_kernel(int d, int code, const T* __restrict__ params,
     if constexpr (SUPPORT) __syncthreads();  // list reused next chunk
   }
 
-  // the warps' partial stripes, summed in warp order: red[(g B + j) ROWS
-  // + r] reuses the stages
+  // the warps' partial stripes, summed in warp order one slot at a time:
+  // red[(g B + j) ROWS + r] reuses the stages; a projecting entry's sums
+  // go to sum[(s B + j) ROWS + r] and are projected on pdots below
   cp_async_wait<0>();
   __syncthreads();
   T* const red = smem;
-#pragma unroll
-  for (int i = 0; i < VALUE_RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < B; ++j)
-      red[(warp * B + j) * VALUE_ROWS + lane + 32 * i] = acc[i][j];
-  __syncthreads();
+  T* const sum = smem + VALUE_WARPS * B * ROWS;
   T* const dst = out + blockIdx.y * seg_stride;
-  for (int e = threadIdx.x; e < VALUE_ROWS * w; e += VALUE_THREADS) {
-    const int r = e % VALUE_ROWS;
-    const int j = e / VALUE_ROWS;
-    if (row0 + r >= n1) continue;
-    T s = red[j * VALUE_ROWS + r];
 #pragma unroll
-    for (int g = 1; g < VALUE_WARPS; ++g)
-      s += red[(g * B + j) * VALUE_ROWS + r];
-    dst[(size_t)(row0 + r) * ldo + j] = s;
+  for (int s = 0; s < NS; ++s) {
+    if (s > 0) __syncthreads();  // the last slot's sums are read
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < B; ++j)
+        red[(warp * B + j) * ROWS + lane + 32 * i] = acc[i][s][j];
+    __syncthreads();
+    for (int e = threadIdx.x; e < ROWS * w; e += VALUE_THREADS) {
+      const int r = e % ROWS;
+      const int j = e / ROWS;
+      if (row0 + r >= n1) continue;
+      T t = red[j * ROWS + r];
+#pragma unroll
+      for (int g = 1; g < VALUE_WARPS; ++g)
+        t += red[(g * B + j) * ROWS + r];
+      if constexpr (Entry::PROJECT)
+        sum[(s * B + j) * ROWS + r] = t;
+      else
+        dst[(size_t)(row0 + r) * ldo + j] = t;
+    }
+  }
+  if constexpr (Entry::PROJECT) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < m * ROWS * w; e += VALUE_THREADS) {
+      const int r = e % ROWS;
+      const int j = (e / ROWS) % w;
+      const int i = e / (ROWS * w);
+      if (row0 + r >= n1) continue;
+      T o = T(0);
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        o += pdots[i * N_PARAM_SLOTS + s] * sum[(s * B + j) * ROWS + r];
+      dst[((size_t)i * n1 + row0 + r) * ldo + j] = o;
+    }
   }
 }
 
@@ -566,9 +653,9 @@ struct WideLayout {
   static constexpr int ELEMS = D * VALUE_ROWS + VALUE_ROWS * KS + 2 * STAGE;
 };
 
-template <typename T, int KIND, int NB>
+template <typename T, typename Entry, int NB>
 constexpr size_t wide_smem_bytes() {
-  return sizeof(T) * WideLayout<NB, value_dims<KIND>()>::ELEMS +
+  return sizeof(T) * WideLayout<NB, Entry::D>::ELEMS +
          VALUE_LIST_BYTES;
 }
 
@@ -600,16 +687,18 @@ __device__ __forceinline__ void stage_wide(T* st, const T* __restrict__ x2,
 }
 
 // Two blocks per SM (<= 128 registers), so that one block's evaluation
-// overlaps the other's contraction.
-template <typename T, int KIND, int NB>
+// overlaps the other's contraction.  The entry gives one value (NS = 1).
+template <typename T, typename Entry, int NB>
 __global__ void __launch_bounds__(VALUE_THREADS, 2)
 value_wide_kernel(int d, int code, const T* __restrict__ params,
+                  const T* __restrict__ pdots, int,
                   const T* __restrict__ x1, int n1,
                   const T* __restrict__ x2, int n2,
                   const T* __restrict__ v, int ldv, int w, int seg_cols,
                   T* __restrict__ out, int ldo, size_t seg_stride) {
-  constexpr int D = value_dims<KIND>();
-  constexpr bool SUPPORT = has_support<KIND>();
+  static_assert(Entry::NS == 1, "the wide kernel contracts one K tile");
+  constexpr int D = Entry::D;
+  constexpr bool SUPPORT = Entry::SUPPORT;
   using L = WideLayout<NB, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const xs1 = reinterpret_cast<T*>(smem_raw);
@@ -632,14 +721,15 @@ value_wide_kernel(int d, int code, const T* __restrict__ params,
   const int dd = D == 1 ? 1 : d;
   v += j_base;
 
-  ValueEntry<T, KIND> ent;
-  ent.load(params, d, code);
+  Entry ent;
+  ent.load(params, pdots, d, code);
 
   T xr[VALUE_RPT][D];
-  load_stripe<T, D>(x1, n1, row0, dd, d, xr);
+  load_stripe<T, D, VALUE_RPT>(x1, n1, row0, dd, d, xr);
   T lo1 = T(0), hi1 = T(0);
   bool fin1 = false;
-  if constexpr (SUPPORT) stripe_range<T>(n1, row0, xr, lo1, hi1, fin1);
+  if constexpr (SUPPORT)
+    stripe_range<T, VALUE_RPT>(n1, row0, xr, lo1, hi1, fin1);
   if (warp == 0) {
 #pragma unroll
     for (int i = 0; i < VALUE_RPT; ++i)
@@ -664,7 +754,7 @@ value_wide_kernel(int d, int code, const T* __restrict__ params,
     int n_kept = nt;
     if constexpr (SUPPORT)
       n_kept = kept_tiles(list, flags, x2, cb, c_end, nt, lo1, hi1, fin1,
-                          ent.p[0]);
+                          ent.t0());
     auto col = [&](int k) {
       return cb + (SUPPORT ? list[k] : k) * VALUE_COLS;
     };
@@ -692,7 +782,9 @@ value_wide_kernel(int d, int code, const T* __restrict__ params,
         T xa[D];
 #pragma unroll
         for (int a = 0; a < D; ++a) xa[a] = xs1[a * VALUE_ROWS + r];
-        ks[r * L::KS + lane] = ok ? ent(xa, xc) : T(0);
+        T kv[1];
+        ent(xa, xc, kv);
+        ks[r * L::KS + lane] = ok ? kv[0] : T(0);
       }
       __syncthreads();
 #pragma unroll
@@ -748,42 +840,46 @@ inline bool value_split_ok(int n2, int seg_cols, int segs, const void* part) {
 
 template <typename T, typename Kernel>
 static int launch_value(Kernel fn, size_t smem, dim3 grid, int d, int code,
-                        const T* params, const T* x1, int n1, const T* x2,
-                        int n2, const T* v, int ldv, int w, int seg_cols,
-                        int segs, T* part, T* out, int ldo,
-                        cudaStream_t stream) {
+                        const T* params, const T* pdots, int m, const T* x1,
+                        int n1, const T* x2, int n2, const T* v, int ldv,
+                        int w, int seg_cols, int segs, T* part, T* out,
+                        int ldo, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return launch_split<T>(
       [&](T* dst, int ldd, size_t seg_stride) {
-        fn<<<grid, VALUE_THREADS, smem, stream>>>(d, code, params, x1, n1,
-                                                  x2, n2, v, ldv, w,
+        fn<<<grid, VALUE_THREADS, smem, stream>>>(d, code, params, pdots, m,
+                                                  x1, n1, x2, n2, v, ldv, w,
                                                   seg_cols, dst, ldd,
                                                   seg_stride);
       },
-      1, n1, w, segs, part, out, ldo, stream);
+      m, n1, w, segs, part, out, ldo, stream);
 }
 
-#define VALUE_ARGS d, code, params, x1, n1, x2, n2, v, ldv, w, seg_cols, \
-    segs, part, out, ldo, stream
-#define VALUE_PARAMS int d, int code, const T *params, const T *x1, int n1, \
-    const T *x2, int n2, const T *v, int ldv, int w, int seg_cols,        \
-    int segs, T *part, T *out, int ldo, cudaStream_t stream
+// The arguments of every launch below; pdots and m are the projection of
+// a projecting entry (null and 1 otherwise).
+#define VALUE_ARGS d, code, params, pdots, m, x1, n1, x2, n2, v, ldv, w, \
+    seg_cols, segs, part, out, ldo, stream
+#define VALUE_PARAMS int d, int code, const T *params, const T *pdots,    \
+    int m, const T *x1, int n1, const T *x2, int n2, const T *v, int ldv, \
+    int w, int seg_cols, int segs, T *part, T *out, int ldo,              \
+    cudaStream_t stream
 
-template <typename T, int KIND, int B>
+template <typename T, typename Entry, int B>
 static int launch_narrow(VALUE_PARAMS) {
-  const dim3 grid((n1 + VALUE_ROWS - 1) / VALUE_ROWS, segs);
-  return launch_value<T>(value_narrow_kernel<T, KIND, B>,
-                         narrow_smem_bytes<T, KIND, B>(), grid, VALUE_ARGS);
+  constexpr int rows = 32 * narrow_rpt(Entry::NS, B);
+  const dim3 grid((n1 + rows - 1) / rows, segs);
+  return launch_value<T>(value_narrow_kernel<T, Entry, B>,
+                         narrow_smem_bytes<T, Entry, B>(), grid, VALUE_ARGS);
 }
 
-template <typename T, int KIND, int NB>
+template <typename T, typename Entry, int NB>
 static int launch_wide(VALUE_PARAMS) {
   const dim3 grid((n1 + VALUE_ROWS - 1) / VALUE_ROWS, segs,
                   (w + 32 * NB - 1) / (32 * NB));
-  return launch_value<T>(value_wide_kernel<T, KIND, NB>,
-                         wide_smem_bytes<T, KIND, NB>(), grid, VALUE_ARGS);
+  return launch_value<T>(value_wide_kernel<T, Entry, NB>,
+                         wide_smem_bytes<T, Entry, NB>(), grid, VALUE_ARGS);
 }
 
 // Narrow widths 1 (value-only CG), 4, 8 (Lanczos), 9 (the training CG's
@@ -793,19 +889,19 @@ static int launch_wide(VALUE_PARAMS) {
 // narrow width (16) and one wide (128 columns), their tails masked.
 template <typename T, int KIND>
 static int launch_value_kind(VALUE_PARAMS) {
+  using E = ValueEntry<T, KIND>;
   if constexpr (KIND == VALUE_PRODUCT4) {
-    if (w <= VALUE_NARROW_MAX) return launch_narrow<T, KIND, 16>(VALUE_ARGS);
-    return launch_wide<T, KIND, 4>(VALUE_ARGS);
+    if (w <= VALUE_NARROW_MAX) return launch_narrow<T, E, 16>(VALUE_ARGS);
+    return launch_wide<T, E, 4>(VALUE_ARGS);
   } else {
-    if (w <= 1) return launch_narrow<T, KIND, 1>(VALUE_ARGS);
-    if (w <= 4) return launch_narrow<T, KIND, 4>(VALUE_ARGS);
-    if (w <= 8) return launch_narrow<T, KIND, 8>(VALUE_ARGS);
-    if (w <= 9) return launch_narrow<T, KIND, 9>(VALUE_ARGS);
-    if (w <= VALUE_NARROW_MAX)
-      return launch_narrow<T, KIND, 16>(VALUE_ARGS);
-    if (w <= 32) return launch_wide<T, KIND, 1>(VALUE_ARGS);
-    if (w <= 64) return launch_wide<T, KIND, 2>(VALUE_ARGS);
-    return launch_wide<T, KIND, 4>(VALUE_ARGS);
+    if (w <= 1) return launch_narrow<T, E, 1>(VALUE_ARGS);
+    if (w <= 4) return launch_narrow<T, E, 4>(VALUE_ARGS);
+    if (w <= 8) return launch_narrow<T, E, 8>(VALUE_ARGS);
+    if (w <= 9) return launch_narrow<T, E, 9>(VALUE_ARGS);
+    if (w <= VALUE_NARROW_MAX) return launch_narrow<T, E, 16>(VALUE_ARGS);
+    if (w <= 32) return launch_wide<T, E, 1>(VALUE_ARGS);
+    if (w <= 64) return launch_wide<T, E, 2>(VALUE_ARGS);
+    return launch_wide<T, E, 4>(VALUE_ARGS);
   }
 }
 
@@ -819,28 +915,29 @@ static int launch_value_sweep(int kind, const T* params, const T* x1, int n1,
   if (n1 <= 0 || w <= 0 || w > VALUE_MAX_COLS ||
       !value_split_ok(n2, seg_cols, segs, part))
     return (int)cudaErrorInvalidValue;
-  const int d = 1, code = 0;
-  switch (kind) {
-    case K1: return launch_value_kind<T, K1>(VALUE_ARGS);
-    case K2: return launch_value_kind<T, K2>(VALUE_ARGS);
-    case SE: return launch_value_kind<T, SE>(VALUE_ARGS);
-    case MATERN12: return launch_value_kind<T, MATERN12>(VALUE_ARGS);
-    case MATERN32: return launch_value_kind<T, MATERN32>(VALUE_ARGS);
-    case MATERN52: return launch_value_kind<T, MATERN52>(VALUE_ARGS);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int d = 1, code = 0, m = 1;
+  const T* pdots = nullptr;
+  return kind_switch(kind, [&](auto k) {
+    return launch_value_kind<T, decltype(k)::value>(VALUE_ARGS);
+  });
 }
 
 // The same for the separable product of d <= MAX_AXES families (code: the
 // family of axis a in bits 4a, params (d, N_PARAM_SLOTS)) on x1 (n1, d)
 // and x2 (n2, d).
 template <typename T>
-static int launch_value_product(VALUE_PARAMS) {
+static int launch_value_product(int d, int code, const T* params,
+                                const T* x1, int n1, const T* x2, int n2,
+                                const T* v, int ldv, int w, int seg_cols,
+                                int segs, T* part, T* out, int ldo,
+                                cudaStream_t stream) {
   if (d < 1 || d > MAX_AXES || n1 <= 0 || w <= 0 || w > VALUE_MAX_COLS ||
       !value_split_ok(n2, seg_cols, segs, part))
     return (int)cudaErrorInvalidValue;
   for (int a = 0; a < d; ++a)
     if (axis_kind(code, a) > MATERN52) return (int)cudaErrorInvalidValue;
+  const int m = 1;
+  const T* pdots = nullptr;
   if (d <= 2) return launch_value_kind<T, VALUE_PRODUCT2>(VALUE_ARGS);
   return launch_value_kind<T, VALUE_PRODUCT4>(VALUE_ARGS);
 }

@@ -27,12 +27,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
-           "tile_jvp.cu", "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu",
+           "tile_tangent_f32.cu", "tile_jvp.cu", "tile_jvp_f32.cu",
+           "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu",
            "ski_bank.cu", "tile_matvec_nd.cu", "tile_matvec_nd_f32.cu",
            "tile_tangent_nd.cu", "ski_gram_2d.cu", "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
-           "tile_sweep_nd.cuh", "ski_fft.cuh", "ski_fft_2d.cuh",
-           "ski_lines_2d.cuh", "ski_lines_1d.cuh")
+           "tangent_sweep.cuh", "tile_sweep_nd.cuh", "ski_fft.cuh",
+           "ski_fft_2d.cuh", "ski_lines_2d.cuh", "ski_lines_1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -70,8 +71,7 @@ _INT = ctypes.c_int
 _DOUBLE = ctypes.c_double
 _SIGNATURES = {
     "tile_matvec_max_cols": [_INT],
-    "tile_tangent_max_cols": [_INT, _INT],
-    "tile_jvp_max_cols": [_INT],
+    "tile_tangent_rows": [_INT, _INT],
     # the sweeps (B1/B12, B2, B3, B8/B13, B9): (lead..., x1, n1, x2, n2,
     # v, ldv, b, seg_cols, segs, part, out, ldo, stream), lead = (kind,
     # params[, pdots, m]) in 1-D (B3: pdot with m = 1) and (d, kinds_code,

@@ -12,12 +12,12 @@ coordinates B8 and B13 (``csrc/tile_matvec_nd.cu``, the product entry),
 run the value sweep of ``csrc/value_sweep.cuh``: k evaluated and
 contracted in registers for b <= 16, on the fp64 tensor cores above, and,
 for k1 and k2 alone, every tile outside the Wendland window skipped
-(:func:`support_tiles` is the rule's twin here).  The tangent sweeps
-(``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``,
-``csrc/tile_tangent_nd.cu``) evaluate each tile in shared memory and
-contract it with V there; see ``csrc/tile_sweep.cuh`` and
-``csrc/tile_sweep_nd.cuh``.  All run on a grid of row stripes x column
-segments.  A row slab is the value sweep on a pre-gathered batch of rows,
+(:func:`support_tiles` is the rule's twin here).  B2 and B3
+(``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``) run the same kernels on
+the closed-form gradient of k (``csrc/tangent_sweep.cuh``), with the same
+skip; B9 (``csrc/tile_tangent_nd.cu``) evaluates each tile in shared
+memory and contracts it with V there (``csrc/tile_sweep_nd.cuh``).  All
+run on a grid of row stripes x column segments.  A row slab is the value sweep on a pre-gathered batch of rows,
 counted under its own name.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
@@ -35,15 +35,14 @@ from .ref import (N_PARAM_SLOTS, N_SLOTS, matrix_ref, product_matrix_ref,
                   product_tangent_matrices_ref, tangent_matrices_ref)
 
 ROW_CHUNK = 1024  # rows per dense block in the plain versions
-# the tile sweeps' grid (csrc/tile_sweep.cuh, B2, B3, B9):
+# the shared-memory tile sweep's grid (csrc/tile_sweep_nd.cuh, B9):
 # stripes of SWEEP_ROWS rows, column tiles of SWEEP_COLS, and enough
 # column segments for ROWS_BLOCKS_PER_SM blocks on each SM
 SWEEP_ROWS = 32
 SWEEP_COLS = 64
 ROWS_BLOCKS_PER_SM = 4
-# the value sweep's (csrc/value_sweep.cuh, B1, B8, B12 and B13): 64-row
-# stripes,
-# 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM (two are
+# the value sweep's (csrc/value_sweep.cuh, B1, B3, B8, B12 and B13, and
+# B2 on stripes of tile_tangent_rows): 64-row stripes, 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM (two are
 # resident; more segments spread the few tiles a Wendland window keeps
 # over more blocks), and at least one tile for each of a block's
 # VALUE_WARPS warps per segment (a slab of a few rows would otherwise
@@ -126,20 +125,22 @@ def tile_matvec(kind: str, params, x1, x2, v):
                          grid=VALUE_GRID)
 
 
-def support_tiles(kind: str, params, x1, x2):
-    """The (stripe, tile) pairs that B1 and B12 evaluate, as a (P, 2)
-    long tensor in row-major order: stripes of VALUE_ROWS rows of x1,
-    tiles of VALUE_COLS columns of x2 (csrc/value_sweep.cuh, kept_tiles).
-    For k1 and k2 a pair is dropped when the [min, max] of its rows and
-    of its columns both lie within +-VALUE_BIG and their gap is >= T0 =
-    params[0]; every entry of a dropped pair is exactly 0.  The other
-    kinds keep every pair."""
-    s1 = -(-x1.shape[0] // VALUE_ROWS)
-    s2 = -(-x2.shape[0] // VALUE_COLS)
+def support_tiles(kind: str, params, x1, x2, rows: int = VALUE_ROWS,
+                  cols: int = VALUE_COLS):
+    """The (stripe, tile) pairs that the value sweep's kernels evaluate
+    (B1, B2, B3 and B12), as a (P, 2) long tensor in row-major order: stripes of ``rows`` rows of x1, tiles of
+    ``cols`` columns of x2 (csrc/value_sweep.cuh, kept_tiles; B2 may take
+    32-row stripes, :func:`tangent_grid`).  For k1 and k2 a pair is
+    dropped when the [min, max] of its rows and of its columns both lie
+    within +-VALUE_BIG and their gap is >= T0 = params[0]; every entry of
+    a dropped pair is exactly 0, in K and in each of its derivatives.
+    The other kinds keep every pair."""
+    s1 = -(-x1.shape[0] // rows)
+    s2 = -(-x2.shape[0] // cols)
     keep = torch.ones((s1, s2), dtype=torch.bool, device=x1.device)
     if kind in ("k1", "k2") and s1 and s2:
-        lo1, hi1, fin1 = _tile_ranges(x1, VALUE_ROWS)
-        lo2, hi2, fin2 = _tile_ranges(x2, VALUE_COLS)
+        lo1, hi1, fin1 = _tile_ranges(x1, rows)
+        lo2, hi2, fin2 = _tile_ranges(x2, cols)
         t0 = params[0]
         drop = ((lo1[:, None] - hi2[None, :] >= t0)
                 | (lo2[None, :] - hi1[:, None] >= t0))
@@ -198,8 +199,18 @@ def tile_stacked_tangent_matvec(kind: str, params, pdots, x1, x2, v):
         return tile_stacked_tangent_matvec_plain(kind, params, pdots, x1,
                                                  x2, v)
     return _launch_sweep("tile_tangent", (_cuda.KIND_IDS[kind],),
-                         ("tile_tangent_max_cols", int(pdots.shape[0])),
-                         params, pdots, x1, x2, v)
+                         ("tile_matvec_max_cols",), params, pdots, x1, x2, v,
+                         grid=tangent_grid(kind, int(v.shape[1])))
+
+
+def tangent_grid(kind: str, b: int):
+    """B2's grid (rows, cols, per_sm, min_tiles) at width b, for
+    :func:`row_segments`: the value sweep's 32-column tiles on stripes of
+    ``tile_tangent_rows`` rows (64, or 32 where a row's gradient slots
+    times b, at most 16 per launch, exceed 16 accumulators).  Asks the
+    built library (card only)."""
+    rows = _cuda.KERNELS.get("tile_tangent_rows")(_cuda.KIND_IDS[kind], b)
+    return (rows, VALUE_COLS, VALUE_BLOCKS_PER_SM, VALUE_WARPS)
 
 
 # ---------------------------------------------------------------------------
@@ -224,8 +235,8 @@ def tile_jvp(kind: str, params, pdot, x1, x2, v):
     if dev.type == "cpu":
         return tile_jvp_plain(kind, params, pdot, x1, x2, v)
     return _launch_sweep("tile_jvp", (_cuda.KIND_IDS[kind],),
-                         ("tile_jvp_max_cols",), params, pdot[None], x1, x2,
-                         v)[0]
+                         ("tile_matvec_max_cols",), params, pdot[None], x1,
+                         x2, v, grid=VALUE_GRID)[0]
 
 
 def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None,
@@ -237,7 +248,8 @@ def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None,
     (B1-B3 the kind's id; B8/B9 d and the packed per-axis ids); ``limit``:
     the max-cols symbol and its leading arguments (the element size is
     appended).  The column segments come from :func:`row_segments` on the
-    kernel's ``grid`` (SWEEP_GRID or VALUE_GRID); with two or more, the
+    kernel's ``grid`` (SWEEP_GRID, VALUE_GRID or B2's
+    :func:`tangent_grid`); with two or more, the
     (segments, m, n1, w) scratch of the partial stripes is allocated
     here."""
     sfx = _cuda.dtype_suffix(v.dtype)
@@ -370,7 +382,7 @@ def row_segments(n1: int, n2: int, sms: int, grid=SWEEP_GRID):
     whole ``cols`` tiles, as many as bring the ceil(n1 / rows) row stripes
     to ``per_sm`` blocks per SM (never more than the tiles / ``min_tiles``;
     one when the stripes alone do), covering n2 exactly.  SWEEP_GRID is
-    the tile sweeps'; B1, B8, B12 and B13 take VALUE_GRID."""
+    B9's; B1, B3, B8, B12 and B13 take VALUE_GRID, B2 :func:`tangent_grid`."""
     rows, cols, per_sm, min_tiles = grid
     stripes = -(-n1 // rows)
     tiles = -(-n2 // cols)

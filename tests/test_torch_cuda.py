@@ -689,6 +689,78 @@ def test_cuda_tile_jvp_matches_plain(cuda_device, kind, b, dtype, tol, n1,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+@pytest.mark.parametrize("b", [1, 8, 9, 16, 17, 64])
+@pytest.mark.parametrize("kind", sorted({k for k, _ in THETAS}))
+def test_cuda_tangent_sweeps_match_plain(cuda_device, kind, b, order, dtype,
+                                         tol):
+    """B2 with m = 1, 3 and 5 random dense pdots rows and B3 along a
+    random direction, on a ragged 1000 x 1001 block, sorted and unsorted,
+    either side of the register switch (b = 16 | 17), against their plain
+    versions; one launch per call, two calls give the same bits."""
+    rng = np.random.default_rng(b + 3)
+    x1 = rng.uniform(0.0, 8760.0, 1000)
+    x2 = rng.uniform(0.0, 8760.0, 1001)
+    if order == "sorted":
+        x1, x2 = np.sort(x1), np.sort(x2)
+    theta = torch.tensor(THETAS[(kind, "mid")], dtype=torch.float64)
+    p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+    a, c, vv = (torch.tensor(z, device=cuda_device, dtype=dtype)
+                for z in (x1, x2, rng.standard_normal((1001, b))))
+    for m in (1, 3, 5):
+        pd = torch.tensor(rng.standard_normal((m, 8)), device=cuda_device,
+                          dtype=dtype)
+        _cuda.reset_launches()
+        got = tkm.tile_stacked_tangent_matvec(kind, p, pd, a, c, vv)
+        again = tkm.tile_stacked_tangent_matvec(kind, p, pd, a, c, vv)
+        jvp = tkm.tile_jvp(kind, p, pd[0], a, c, vv)
+        jvp_again = tkm.tile_jvp(kind, p, pd[0], a, c, vv)
+        torch.cuda.synchronize()
+        assert dict(_cuda.LAUNCHES) == {"tile_tangent": 2, "tile_jvp": 2}
+        assert got.shape == (m, 1000, b) and jvp.shape == (1000, b)
+        assert torch.equal(got, again) and torch.equal(jvp, jvp_again)
+        assert _relerr(got, tkm.tile_stacked_tangent_matvec_plain(
+            kind, p, pd, a, c, vv)) < tol
+        assert _relerr(jvp, tkm.tile_jvp_plain(kind, p, pd[0], a, c,
+                                               vv)) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("b", [9, 17])
+@pytest.mark.parametrize("kind", ["k1", "k2"])
+def test_cuda_tangent_sweeps_skip_nothing_beside_a_huge_point(
+        cuda_device, kind, b, dtype):
+    """A row of x1 beyond +-VALUE_BIG keeps its stripe from being skipped:
+    the other rows of B2 and B3 still match their plain versions, and the
+    row itself is exactly 0 (the kernels zero an entry outside the window
+    before its sincos; the plain version's sine of an overflowed argument
+    gives a nan there)."""
+    rng = np.random.default_rng(b)
+    x1 = np.sort(rng.uniform(0.0, 8760.0, 333))
+    x2 = np.sort(rng.uniform(0.0, 8760.0, 301))
+    x1[70] = 1.25 * tkm.VALUE_BIG[dtype]
+    theta = torch.tensor(THETAS[(kind, "mid")], dtype=torch.float64)
+    p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+    pd = torch.tensor(rng.standard_normal((3, 8)), device=cuda_device,
+                      dtype=dtype)
+    a, c, vv = (torch.tensor(z, device=cuda_device, dtype=dtype)
+                for z in (x1, x2, rng.standard_normal((301, b))))
+    got = tkm.tile_stacked_tangent_matvec(kind, p, pd, a, c, vv)
+    jvp = tkm.tile_jvp(kind, p, pd[0], a, c, vv)
+    torch.cuda.synchronize()
+    keep = torch.arange(333, device=cuda_device) != 70
+    tol = 1e-11 if dtype == torch.float64 else 1e-5
+    want = tkm.tile_stacked_tangent_matvec_plain(kind, p, pd, a, c, vv)
+    assert _relerr(got[:, keep], want[:, keep]) < tol
+    want = tkm.tile_jvp_plain(kind, p, pd[0], a, c, vv)
+    assert _relerr(jvp[keep], want[keep]) < tol
+    assert not bool(got[:, 70].any()) and not bool(jvp[70].any())
+
+
+@pytest.mark.cuda
 def test_cuda_distributed_step_matches_the_cpu(cuda_device):
     """distributed_profiled_loglik on a world-size-1 NCCL group against the
     same call on a gloo group on the CPU, with the same probes and CG to
