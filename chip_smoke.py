@@ -184,6 +184,17 @@ d <= 4: ptxas_value_sweep), of B2's and B3's kernels (the value sweep's
 on their gradient entries: ptxas_tangent_sweep), of B10's line kernels (ptxas_ski_lines) and of
 B5's and B7's (ptxas_ski_lines_1d).
 
+Phase 1 runs alone.  Phases 2-8 then run in four worker processes side by
+side on the card (WORKERS: the SKI phase; the N-D phase; check 4 and the
+small-input checks; the irregular, stochastic and distributed phases),
+each worker its phases in turn with a share of the host's cores, since
+their CG loops are host-bound; the script waits for all of them (the
+first failure stops the others) and prints each worker's output in that
+order.  So their stage times are taken beside each other's host work.
+Each phase prints its wall clock as it ends ({"phase_s": {...}}), and a
+line before the kernels line gives all of them and the workers' wall
+clock together.
+
 Every phase fails loudly: a build failure, a launch error, a mismatch or a
 non-finite result exits nonzero.  The line before the last gives the
 script's own seconds (script_s); the last line of standard output is the
@@ -261,11 +272,14 @@ import argparse
 import itertools
 import json
 import math
+import os
 import pathlib
 import re
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2578,6 +2592,90 @@ def report_small_input_checks(checks):
                                  f"small input ({got_op})")
 
 
+# the phases of the full run after the kernel phase, by name
+PHASES = {
+    "irregular": lambda a, dev: workflow_phase(*make_data(a.seed, dev),
+                                               a.seed, a.budget),
+    "ski": lambda a, dev: ski_phase(a.seed),
+    "nd": lambda a, dev: nd_phase(a.seed),
+    "stochastic": lambda a, dev: stochastic_phase(a.seed),
+    "distributed": lambda a, dev: distributed_phase(a.seed, dev),
+    "sequential_vs_bank": lambda a, dev: sequential_vs_bank(a.seed),
+    "small_input": lambda a, dev: small_input_check(dev),
+}
+# the worker processes that run those phases side by side on the one card,
+# each its phases in turn.  Their CG loops are host-bound (PERF.md §5): run
+# one after another they took 815-934 s of the script's 1200 on a fast host
+# and ran past it on a slower one, so each worker takes a share of the
+# host's cores; the kernel phase, which times kernels, runs alone before
+# them.  Grouped by their one-after-another times (PERF.md §5).
+WORKERS = (("ski",), ("nd",), ("sequential_vs_bank", "small_input"),
+           ("irregular", "stochastic", "distributed"))
+
+
+def run_worker(args, dev) -> int:
+    """``--worker``: run the named phases in turn, each timed, and write
+    their results and times as JSON to ``--out``."""
+    cores = len(os.sched_getaffinity(0))
+    torch.set_num_threads(max(1, cores // len(WORKERS)))
+    _cuda.build()
+    out = {"phase_s": {}}
+    for name in args.worker.split(","):
+        t0 = time.perf_counter()
+        out[name] = PHASES[name](args, dev)
+        torch.cuda.synchronize()
+        out["phase_s"][name] = time.perf_counter() - t0
+        emit({"phase_s": {name: out["phase_s"][name]}})
+    pathlib.Path(args.out).write_text(json.dumps(out))
+    return 0
+
+
+def run_workers(args, tmp: pathlib.Path) -> dict:
+    """Start one process per entry of WORKERS, wait for all of them (on
+    the first failure, stop the others), then print each one's output in
+    WORKERS' order and return the phases' results; raise if any failed."""
+    procs = []
+    # a SIGTERM (a time limit) still runs the finally below: no worker
+    # outlives the script
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        for i, names in enumerate(WORKERS):
+            files = [tmp / f"worker{i}.{ext}" for ext in ("out", "err",
+                                                          "json")]
+            cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+                   "--seed", str(args.seed), "--budget", args.budget,
+                   "--worker", ",".join(names), "--out", str(files[2])]
+            with open(files[0], "w") as fo, open(files[1], "w") as fe:
+                procs.append((names, subprocess.Popen(
+                    cmd, stdout=fo, stderr=fe, stdin=subprocess.DEVNULL),
+                    files))
+        while any(p.poll() is None for _, p, _ in procs):
+            if any(p.poll() not in (None, 0) for _, p, _ in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for _, p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    results, failed = {"phase_s": {}}, []
+    for names, p, (out, err, res) in procs:
+        sys.stdout.write(out.read_text())
+        sys.stdout.flush()
+        sys.stderr.write(err.read_text())
+        if p.returncode != 0:
+            failed.append((names, p.returncode))
+        else:
+            got = json.loads(res.read_text())
+            results["phase_s"].update(got.pop("phase_s"))
+            results.update(got)
+    sys.stderr.flush()
+    if failed:
+        raise RuntimeError(f"worker phases failed (names, exit code): "
+                           f"{failed}")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2598,12 +2696,19 @@ def main(argv=None) -> int:
     ap.add_argument("--distributed", action="store_true",
                     help="run only the kernel cases of B3 and the "
                          "distributed phase with its checks")
+    ap.add_argument("--worker", default=None, metavar="PHASE[,PHASE...]",
+                    help="(used by the full run) run only these phases of "
+                         f"{sorted(PHASES)} and write their results to "
+                         "--out")
+    ap.add_argument("--out", default=None, help="the --worker's JSON file")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if args.worker:
+        return run_worker(args, dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2684,14 +2789,21 @@ def main(argv=None) -> int:
     x = torch.tensor(x_np, device=dev)
     xstar = torch.tensor(xstar_np, device=dev)
     rng = np.random.default_rng(args.seed + 1)
+    t0 = time.perf_counter()
     cases, crossover = kernel_phase(x, xstar, dev, rng, args.seed)
-    summary = workflow_phase(x_np, y_np, xstar_np, args.seed, args.budget)
-    ski = ski_phase(args.seed)
-    nd = nd_phase(args.seed)
-    st = stochastic_phase(args.seed)
-    dist_out = distributed_phase(args.seed, dev)
-    seq_vs_bank = sequential_vs_bank(args.seed)
-    small_input_check(dev)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    emit({"phase_s": {"kernel": kernel_s}})
+    del x, xstar
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_workers(args, pathlib.Path(tmp))
+    phase_s = dict(kernel=kernel_s, **res["phase_s"],
+                   workers=time.perf_counter() - t0)
+    summary, ski, nd, st, dist_out, seq_vs_bank = (
+        res[k] for k in ("irregular", "ski", "nd", "stochastic",
+                         "distributed", "sequential_vs_bank"))
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
                 **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS},
@@ -2713,6 +2825,7 @@ def main(argv=None) -> int:
             shape={k: v for k, v in h.items()
                    if k in ("kind", "n", "n1", "n2", "m_grid", "L", "b",
                             "m", "B", "c", "k", "dtype")}))
+    emit({"phase_s": phase_s})
     emit({"kernels": kernels})
     if args.json:
         path = pathlib.Path(args.json)
@@ -2720,7 +2833,7 @@ def main(argv=None) -> int:
         path.write_text(json.dumps(dict(
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
             workflow=summary, ski_workflow=ski, nd=nd, stochastic=st,
-            distributed=dist_out,
+            distributed=dist_out, phase_s=phase_s,
             sequential_vs_bank=seq_vs_bank, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"script_s": time.perf_counter() - t_start})
