@@ -20,9 +20,10 @@ started together) and then:
      time the card could take (the roofline bound below); B5 is also
      timed against its plain version at n ~ 600, 2000 and 7080 (where the
      card's own crossover lies), and B7 at B = 1 is held against B5 on
-     the same inputs; every B5 and B7 case prints its plan
-     (ski_gram_plan: the four-step split L1 x L2, launches per call,
-     scratch bytes), and both also run on the sequential-vs-bank check's
+     the same inputs; every B5, B6 and B7 case prints its plan
+     (ski_gram_plan: the four-step split L1 x L2, the directions, launches
+     per call, scratch bytes), and B5 and B7 also run on the
+     sequential-vs-bank check's
      record (L = 2048, case "record": B5 at b = 9 in float64 and float32,
      B7 at B = 4, c = 9); B1 also at "se" (no
      Wendland window), k2 with T0 = 2000 h, k2 on unsorted points and
@@ -33,7 +34,12 @@ started together) and then:
      16 and 17, k2 with T0 = 2000 h, k2 on unsorted points with random
      dense pdots of m = 1 .. 5 rows, and at the stochastic 1-D stage's
      shape ("se", n = 65536, b = 9, m = 1; also under --stochastic), each
-     with support_share and tiles_skipped on its own stripes; B10 at the
+     with support_share and tiles_skipped on its own stripes; B9 at m = 2
+     ("se*matern32") and m = 6 ("k2*se") on the irregular (n, 2) stage's
+     4096 points, and at the stochastic (n, 2) stage's shape, where it
+     launches most ("se*matern32", n1 = n2 = 65536, b = 9, m = 2; also
+     under --stochastic; the kernels line's case), each against its
+     plain version on every row; B10 at the
      product-SKI cell (b = 9,
      8, 1, 256, float32) and on a field whose time axis is longer than its
      float64 line cap (L1 = 8192: axis 0 on the global passes), each case
@@ -177,12 +183,15 @@ started together) and then:
      printed); and the stochastic objective (backend pinned, the same
      probes and epoch permutations) at n = 1024, 1-D and (n, 2).
 
-After the build, four lines give the registers, stack frame and spills
+After the build, five lines give the registers, stack frame and spills
 from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
 B12, and kinds 6 and 7, the product entry of B8 and B13 for d <= 2 and
 d <= 4: ptxas_value_sweep), of B2's and B3's kernels (the value sweep's
-on their gradient entries: ptxas_tangent_sweep), of B10's line kernels (ptxas_ski_lines) and of
-B5's and B7's (ptxas_ski_lines_1d).
+on their gradient entries: ptxas_tangent_sweep), of B9's (the value
+sweep's on the product gradient entry, per axes D <= 2 or 4, slots per
+axis and width: ptxas_product_tangent), of B10's line kernels
+(ptxas_ski_lines) and of the line kernels that B5, B6 and B7 share
+(ptxas_ski_lines_1d).
 
 Phase 1 runs alone.  Phases 2-8 then run in four worker processes side by
 side on the card (WORKERS: the SKI phase; the N-D phase; check 4 and the
@@ -256,7 +265,8 @@ length, SEQ_VS_BANK_MONTHS by default): how its budget was chosen.
 
 ``--nd`` builds the kernels and runs only the kernel cases of B8-B11 and
 check 5.  ``--stochastic`` builds the kernels and runs only the kernel
-cases of B12/B13, check 6 and the stochastic small-input checks.
+cases of B12/B13 and the stochastic shapes of B2 and B9, check 6 and the
+stochastic small-input checks.
 ``--distributed`` builds the kernels and runs only the cases of B3 and
 check 7.
 
@@ -753,6 +763,7 @@ def kernel_phase(x, xstar, dev, rng, seed):
     b1_extra_cases(cases, x, dev, rng)
     b2_extra_cases(cases, x, dev, rng)
     b2_stochastic_case(cases, dev, rng, seed)
+    b9_stochastic_case(cases, dev, rng, seed)
     jvp_kernel_cases(cases, x, dev, rng)
     crossover = ski_kernel_cases(cases, dev, rng, seed)
     nd_kernel_cases(cases, dev, rng, seed)
@@ -883,6 +894,39 @@ def b2_stochastic_case(cases, dev, rng, seed):
         plain_repeats=1))
 
 
+def b9_stochastic_case(cases, dev, rng, seed):
+    """B9 at the stochastic (n, 2) stage's shape, where it launches most:
+    StochasticSolver's tangent_matvecs on the whole field ("se*matern32",
+    n1 = n2 = 65536, b = 9 = [alpha | 8 probes], m = 2), against its plain
+    version on every row (one timed repeat: each call of it evaluates
+    4.3e9 entries in 1024-row blocks)."""
+    x_np, _, _ = make_scattered_field(seed, STOCHASTIC_N)
+    x = torch.tensor(x_np, device=dev)
+    kinds = ops.split_kind(ND_KIND)
+    th = torch.tensor(ROWS_THETA[ND_KIND], dtype=torch.float64)
+    p = ops.natural_params_nd(ND_KIND, th).to(dev)
+    pd = ops.natural_tangents_nd(ND_KIND, th).to(dev)
+    v = torch.tensor(rng.standard_normal((STOCHASTIC_N, 9)), device=dev)
+
+    def kern():
+        return km.tile_stacked_tangent_matvec_nd(kinds, p, pd, x, x, v)
+
+    def plain():
+        return km.tile_stacked_tangent_matvec_nd_plain(kinds, p, pd, x, x,
+                                                       v)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err, rel = errors(got, want)
+    del got, want
+    n = STOCHASTIC_N
+    bms, by = tile_nd_bound(kinds, n, n, 9, pd.shape[0])
+    cases["tile_tangent_nd"].append(dict(
+        kind=ND_KIND, case="stochastic", n1=n, n2=n, b=9, m=pd.shape[0],
+        max_abs_err=err, max_rel_err=rel, ms=time_ms(kern, 3),
+        plain_ms=time_ms(plain, 1), bound_ms=bms, bound_by=by))
+
+
 def value_ptxas(log: str):
     """Registers, stack frame and spills of each value-sweep kernel from
     the -Xptxas -v build log: (dtype, kind id, B or NB); kinds 6 and 7
@@ -906,6 +950,17 @@ def tangent_ptxas(log: str):
                        path=m.group(1), dtype="float64" if m.group(2) == "d"
                        else "float32", kind=int(m.group(4)),
                        width=int(m.group(5))))
+
+
+def product_tangent_ptxas(log: str):
+    """The same for B9: the value sweep's narrow kernel on
+    ProductGradEntry, (dtype, axes D, slots per axis SA, width B)."""
+    return ptxas_rows(
+        log, r"value_narrow_kernelI([df])NS_\d+ProductGradEntryI[df]"
+        r"Li(\d+)ELi(\d+)EEELi(\d+)E",
+        lambda m: dict(dtype="float64" if m.group(1) == "d" else "float32",
+                       axes=int(m.group(2)), slots_per_axis=int(m.group(3)),
+                       width=int(m.group(4))))
 
 
 def ski_lines_ptxas(log: str, kernels=("rows_conv_2d", "cols_conv_2d")):
@@ -1073,8 +1128,10 @@ def ski_kernel_cases(cases, dev, rng, seed):
             bms, by = ski_bound(geom, 9, m, dtype)
             cases["ski_tangent"].append(dict(
                 kind=kind, n=geom.n, m_grid=geom.m_grid, L=geom.L, b=9, m=m,
-                dtype=str(dtype).split(".")[-1], max_abs_err=err,
-                max_rel_err=rel,
+                dtype=str(dtype).split(".")[-1],
+                **gram_1d_plan_keys("ski_tangent", geom, (9 + 1) // 2, dtype,
+                                    m),
+                max_abs_err=err, max_rel_err=rel,
                 ms=time_ms(lambda: sf.fused_tangent_matvecs(geom, lams, v),
                            20),
                 plain_ms=time_ms(lambda: sf.fused_tangent_matvecs_plain(
@@ -1113,17 +1170,18 @@ def ski_kernel_cases(cases, dev, rng, seed):
     return crossover
 
 
-def gram_1d_plan_keys(name, geom, lines, dtype):
-    """The plan of one B5 or B7 call (ski_fused.gram_1d_plan) on ``lines``
-    packed columns, printed as a ski_gram_plan line; returns its keys for
-    the case's row."""
+def gram_1d_plan_keys(name, geom, lines, dtype, dirs=1):
+    """The plan of one B5, B6 (``dirs`` tangent spectra) or B7 call
+    (ski_fused.gram_1d_plan) on ``lines`` packed columns, printed as a
+    ski_gram_plan line; returns its keys for the case's row."""
     item = torch.finfo(dtype).bits // 8
-    plan = sf.gram_1d_plan(geom.L, lines, item, geom.split)
+    plan = sf.gram_1d_plan(geom.L, lines, item, geom.split, dirs)
     keys = dict(split=list(plan.split), line_cap=plan.cap,
                 kernel_launches=plan.launches,
                 scratch_bytes=2 * item * plan.scratch)
     emit({"ski_gram_plan": dict(kernel=name, L=geom.L, lines=lines,
-                                dtype=str(dtype).split(".")[-1], **keys)})
+                                dirs=dirs, dtype=str(dtype).split(".")[-1],
+                                **keys)})
     return keys
 
 
@@ -1269,8 +1327,8 @@ def nd_kernel_cases(cases, dev, rng, seed):
         err, rel = errors(got, want)
         bms, by = tile_nd_bound(kinds, n, n, 9, m)
         cases["tile_tangent_nd"].append(dict(
-            kind=kind, n1=n, n2=n, b=9, m=m, max_abs_err=err,
-            max_rel_err=rel,
+            kind=kind, case="irregular", n1=n, n2=n, b=9, m=m,
+            max_abs_err=err, max_rel_err=rel,
             ms=time_ms(lambda: km.tile_stacked_tangent_matvec_nd(
                 kinds, p, pd, x, x, v), 10),
             plain_ms=time_ms(lambda: km.tile_stacked_tangent_matvec_nd_plain(
@@ -1832,7 +1890,7 @@ HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
             "ski_tangent": dict(kind="k2", dtype="float64"),
             "ski_bank": dict(case="cell", B=4, c=9, dtype="float64"),
             "tile_matvec_nd": dict(n1=N_ND_IRREGULAR, b=9),
-            "tile_tangent_nd": dict(kind=ND_KIND),
+            "tile_tangent_nd": dict(kind=ND_KIND, case="stochastic"),
             "ski_gram_2d": dict(case="cell", b=9, dtype="float64"),
             "ski_tangent_2d": dict(dtype="float64"),
             "tile_rows": dict(b=2048, n2=STOCHASTIC_N, k=9,
@@ -2691,8 +2749,9 @@ def main(argv=None) -> int:
                     help="run only the kernel cases of B8-B11 and the N-D "
                          "phase")
     ap.add_argument("--stochastic", action="store_true",
-                    help="run only the kernel cases of B12/B13, the "
-                         "stochastic phase and its small-input checks")
+                    help="run only the kernel cases of B12/B13 and the "
+                         "stochastic shapes of B2 and B9, the stochastic "
+                         "phase and its small-input checks")
     ap.add_argument("--distributed", action="store_true",
                     help="run only the kernel cases of B3 and the "
                          "distributed phase with its checks")
@@ -2719,6 +2778,8 @@ def main(argv=None) -> int:
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
     emit({"ptxas_value_sweep": value_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_tangent_sweep": tangent_ptxas(_cuda.KERNELS.ptxas_log)})
+    emit({"ptxas_product_tangent": product_tangent_ptxas(
+        _cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines": ski_lines_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines_1d": ski_lines_ptxas(_cuda.KERNELS.ptxas_log,
                                                 SKI_LINES_1D)})
@@ -2732,7 +2793,9 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(args.seed + 2)
         rows_kernel_cases(cases, dev, rng, args.seed)
         b2_stochastic_case(cases, dev, rng, args.seed)
-        check_cases(cases, ROWS_KERNELS + ("tile_tangent",))
+        b9_stochastic_case(cases, dev, rng, args.seed)
+        check_cases(cases, ROWS_KERNELS + ("tile_tangent",
+                                           "tile_tangent_nd"))
         st = stochastic_phase(args.seed)
         report_small_input_checks(stochastic_small_input_checks(dev))
         if args.json:

@@ -8,11 +8,14 @@ under ``build/parent``); its own ``src`` and ``chip_smoke.py`` are
 imported and its kernels built, so two trees run side by side in turns
 (parent, change, change, parent), each in its own process.  PHASE is
 ``irregular`` (make_data and workflow_phase: bind, fit, log_evidence,
-predict at n = 8760), ``stochastic`` (stochastic_phase: the 1-D and (n, 2)
-stages at n = 65536) or ``distributed`` (distributed_phase at world size
-1).  Each phase prints the lines that chip_smoke prints for it, then one
+predict at n = 8760), ``ski`` (ski_phase: the gappy tide record through
+bind, fit, log_evidence, compare and predict), ``nd`` (nd_phase: the
+product-SKI, Kronecker and scattered (n, 2) stages), ``stochastic``
+(stochastic_phase: the 1-D and (n, 2) stages at n = 65536) or
+``distributed`` (distributed_phase at world size 1).  Each phase prints the lines that chip_smoke prints for it, then one
 line ``{"stage_ab": {...}}`` with the tree, the phase, its seconds, its
-stage times and its ln P_max and ln Z (per stage where it has several).
+stage times and its ln P_max and ln Z (per stage where it has several; the SKI and N-D phases
+also their ln B).
 How the stages of a change were compared with its parent's (PERF.md).
 """
 
@@ -51,6 +54,18 @@ def main(argv=None) -> int:
             s = cs.workflow_phase(x, y, xs, args.seed, "committed")
             res = dict(stage_s=s["stage_s"], log_p_max=s["log_p_max"],
                        log_z=s["log_z"], launches=s["launches"])
+        elif phase == "ski":
+            s = cs.ski_phase(args.seed)
+            res = dict(stage_s=s["stage_s"], log_p_max=s["log_p_max"],
+                       log_z=s["log_z"], ln_b=s["ln_b_k2_vs_k1"],
+                       compare=s["compare"], launches=s["launches"])
+        elif phase == "nd":
+            out = cs.nd_phase(args.seed)
+            res = {k: dict(stage_s=out[k]["stage_s"],
+                           log_p_max=out[k]["log_p_max"],
+                           log_z=out[k].get("log_z"),
+                           ln_b=out[k].get("ln_b_matern32_vs_se"))
+                   for k in ("product_ski", "kron", "irregular")}
         elif phase == "stochastic":
             out = cs.stochastic_phase(args.seed)
             res = {k: dict(stage_s=v.get("stage_s"),

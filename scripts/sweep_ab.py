@@ -9,12 +9,14 @@ prints one JSON line: LABEL and the time per call (``chip_smoke.time_ms``,
 median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5, and
 at the stochastic 1-D stage's shape: "se", n = 65536, b = 9, m = 1), B3
 (k2, b = 9 and 1), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
-b = 9), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
+b = 9; B9 also at the stochastic (n, 2) stage's shape, 65536 points,
+m = 2), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
 cell of ``chip_smoke.py``, B10 (its product-SKI cell, b = 1, 9 and 256)
 and B11 (m = 2, b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
 (b = 2048, "se*matern32", k = 9 and 256), and B5 at b = 256.  The keys
 ending in ``_dev`` give the card's time alone for B2, B3 (b = 9), B5
-(b = 9 and 256), B6, B7, B8, B10 and B13: 20 calls captured in one CUDA graph and replayed
+(b = 9 and 256), B6, B7, B8, B9 (4096 points), B10 and B13: 20 calls
+captured in one CUDA graph and replayed
 (CUDA events around the replay, over 20), so the host's work per call,
 which the other keys include, drops out.  Compare
 two commits only within one call, in turns (parent, change, change,
@@ -117,6 +119,15 @@ def main(tree: str, label: str) -> None:
     res["B9_m2"] = cs.time_ms(
         lambda: km.tile_stacked_tangent_matvec_nd(kinds, pn, pdn, X, X, w9),
         10)
+    res["B9_m2_dev"] = graph_ms(
+        lambda: km.tile_stacked_tangent_matvec_nd(kinds, pn, pdn, X, X, w9))
+    Xs9, _, _ = cs.make_scattered_field(0, 65536)
+    Xs9 = torch.tensor(Xs9, device=dev)
+    u9s = torch.tensor(rng.standard_normal((65536, 9)), device=dev)
+    res["B9_stochastic"] = cs.time_ms(
+        lambda: km.tile_stacked_tangent_matvec_nd(kinds, pn, pdn, Xs9, Xs9,
+                                                  u9s), 3)
+    del Xs9, u9s
     xt, _, _, _ = cs.make_tidal_data(0)
     sop = opers.select_operator("k2", torch.tensor(xt, device=dev),
                                 cs.TIDAL_SIGMA_N, 1e-8)

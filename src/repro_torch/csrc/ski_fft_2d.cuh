@@ -10,10 +10,10 @@
 // src/repro/kernels/ski_fused.py.  There one Pallas body runs W^T, the
 // axis-0 FFT, a transpose held in VMEM, the axis-1 FFT, the spectrum
 // multiply and the mirrored inverse stages.  Here the transpose is gone: the
-// Stockham pass of ski_fft.cuh (fft_stage, which B5-B7 run on the (1, L)
-// plane) takes the axis it runs along as an argument, and reads and writes
-// the (L1, L2) complex plane of each packed column with that axis's
-// stride, so the two axis stages need no data movement between them.
+// Stockham pass of ski_fft.cuh (fft_stage) takes the axis it runs along
+// as an argument, and reads and writes the (L1, L2) complex plane of each
+// packed column with that axis's stride, so the two axis stages need no
+// data movement between them.
 //
 // What it computes, for a 2-D near-grid geometry (every data row in a
 // distinct cell of the m1 x m2 inducing grid, flat row-major cells

@@ -18,11 +18,12 @@ int gram(int n, int m, int L, int s, const void* offs, const void* occ,
          void* scratch, int L1, int col_tpl, int col_lpb, int row_tpl,
          int row_lpb, void* stream) {
   if (B != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(ski::gram_1d<T>(
+  const T* vv = static_cast<const T*>(v);
+  return static_cast<int>(ski::sandwich_1d<T>(
       n, m, L, s, static_cast<const int*>(offs),
       static_cast<const int*>(occ), static_cast<const T*>(wcell),
-      static_cast<const int*>(cell), static_cast<const T*>(lams),
-      static_cast<T>(noise2), static_cast<const T*>(v), 1, c,
+      static_cast<const int*>(cell), static_cast<const T*>(lams), 1,
+      static_cast<T>(noise2), vv, vv, 1, c,
       static_cast<T*>(out), static_cast<T*>(scratch), L1, col_tpl, col_lpb,
       row_tpl, row_lpb, static_cast<cudaStream_t>(stream)));
 }

@@ -48,9 +48,11 @@ namespace ski {
 constexpr int kLineSmemLimit = 232448;  // opt-in shared memory per block
 constexpr int kLineThreadsMax = 1024;
 
+// bufs: line buffers of L + 1 per line, the two of the Stockham
+// ping-pong (three where B6's rows keep the forward line beside them).
 template <typename T>
-inline size_t line_smem_bytes(int L, int lines) {
-  return sizeof(cplx<T>) * ((size_t)L + (size_t)2 * lines * (L + 1));
+inline size_t line_smem_bytes(int L, int lines, int bufs = 2) {
+  return sizeof(cplx<T>) * ((size_t)L + (size_t)bufs * lines * (L + 1));
 }
 
 // The longest power-of-two line one block holds (one line per block).
@@ -309,11 +311,12 @@ __global__ void w_apply_lines_2d(int n, int m1, int m2, int ldk, int s,
   if (j0 + 1 < c) out[at + 1] = im + noise2 * v[at + 1];
 }
 
-// Whether a line kernel's plan fits: tpl threads per line, lpb lines.
+// Whether a line kernel's plan fits: tpl threads per line, lpb lines of
+// bufs buffers each.
 template <typename T>
-inline bool line_plan_ok(int L, int tpl, int lpb) {
+inline bool line_plan_ok(int L, int tpl, int lpb, int bufs = 2) {
   return tpl >= 1 && lpb >= 1 && (long long)tpl * lpb <= kLineThreadsMax &&
-         line_smem_bytes<T>(L, lpb) <= (size_t)kLineSmemLimit;
+         line_smem_bytes<T>(L, lpb, bufs) <= (size_t)kLineSmemLimit;
 }
 
 // Opt a line kernel in to more than the default 48 KB of dynamic shared

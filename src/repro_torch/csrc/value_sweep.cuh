@@ -57,10 +57,11 @@
 // The entry: the kernels take an entry type.  Each gives NS values per
 // (x1, x2) pair, and the narrow kernel keeps NS x B accumulators per row
 // and, for an entry that asks for it (PROJECT), projects the NS slot sums
-// on the m rows of pdots once per output row as it writes them.  The covariance has NS = 1: one family
-// is ValueEntry<T, KIND>, x1 and x2 one coordinate each.  The tangent
-// sweeps B2 and B3 run the same kernels on the gradient entries of
-// tangent_sweep.cuh.  The products are two more "kinds",
+// on the m directions of pdots once per output row as it writes them.
+// The covariance has NS = 1: one family is ValueEntry<T, KIND>, x1 and x2
+// one coordinate each.  The tangent sweeps B2, B3 and B9 run the same
+// kernels on the gradient entries of tangent_sweep.cuh.  The products are
+// two more "kinds",
 // VALUE_PRODUCT2 for d <= 2 (the (n, 2) points of the main path) and
 // VALUE_PRODUCT4 for d <= MAX_AXES (ProductEntry): each point carries 2 or
 // MAX_AXES coordinate registers (d of them used), each axis's family
@@ -103,7 +104,8 @@ __host__ __device__ constexpr bool has_support() {
 
 // Rows per lane of the narrow kernel for an entry of ns values at width b:
 // two while a row's ns b accumulators stay <= 16 (every NS = 1 entry),
-// else one, so that B2's gradient slots (k2: 5 b) stay in registers.
+// else one, so that B2's and B9's gradient slots (k2: 5 b) stay in
+// registers.
 __host__ __device__ constexpr int narrow_rpt(int ns, int b) {
   return ns * b <= 16 ? 2 : 1;
 }
@@ -238,9 +240,9 @@ __device__ __forceinline__ T axis_value(int kind, T dt,
 }
 
 // An entry type gives D (coordinates per point), NS (values per pair),
-// PROJECT (the narrow kernel writes out[i] = sum_s pdots[i, s] S[s] for
-// i < m, S the NS slot sums; else out = S, NS = 1), SUPPORT (a Wendland
-// window of half-width t0() that the kernels may skip outside),
+// PROJECT (the narrow kernel writes out[i] = sum_s coef(pdots, i, s) S[s]
+// for i < m, S the NS slot sums; else out = S, NS = 1), SUPPORT (a
+// Wendland window of half-width t0() that the kernels may skip outside),
 // load(params, pdots, d, code), called once per block, and e(x1, x2, g),
 // which writes the pair's NS values to g.
 
@@ -462,8 +464,8 @@ constexpr size_t narrow_smem_bytes() {
 // evaluation stalls on its own latency.  Wider ones keep their registers
 // (one block per SM).  Lane l owns rows l + 32 i, i < RPT, of a
 // stripe of 32 RPT rows (narrow_rpt).  A projecting entry's NS slot sums
-// are projected on pdots (m, N_PARAM_SLOTS) as they are written:
-// out[i, r, j] = sum_s pdots[i, s] S[s, r, j], out (m, n1, ldo).
+// are projected on its m directions as they are written:
+// out[i, r, j] = sum_s coef(pdots, i, s) S[s, r, j], out (m, n1, ldo).
 template <typename T, typename Entry, int B>
 __global__ void __launch_bounds__(VALUE_THREADS,
                                   narrow_blocks(Entry::NS, B))
@@ -601,7 +603,7 @@ value_narrow_kernel(int d, int code, const T* __restrict__ params,
       T o = T(0);
 #pragma unroll
       for (int s = 0; s < NS; ++s)
-        o += pdots[i * N_PARAM_SLOTS + s] * sum[(s * B + j) * ROWS + r];
+        o += ent.coef(pdots, i, s) * sum[(s * B + j) * ROWS + r];
       dst[((size_t)i * n1 + row0 + r) * ldo + j] = o;
     }
   }

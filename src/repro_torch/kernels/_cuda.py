@@ -30,10 +30,11 @@ SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
            "tile_tangent_f32.cu", "tile_jvp.cu", "tile_jvp_f32.cu",
            "tile_matrix.cu", "ski_gram.cu", "ski_tangent.cu",
            "ski_bank.cu", "tile_matvec_nd.cu", "tile_matvec_nd_f32.cu",
-           "tile_tangent_nd.cu", "ski_gram_2d.cu", "ski_tangent_2d.cu")
+           "tile_tangent_nd.cu", "tile_tangent_nd_f32.cu", "ski_gram_2d.cu",
+           "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
-           "tangent_sweep.cuh", "tile_sweep_nd.cuh", "ski_fft.cuh",
-           "ski_fft_2d.cuh", "ski_lines_2d.cuh", "ski_lines_1d.cuh")
+           "tangent_sweep.cuh", "ski_fft.cuh", "ski_fft_2d.cuh",
+           "ski_lines_2d.cuh", "ski_lines_1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -85,7 +86,7 @@ _SIGNATURES = {
                      _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
                      _VOID],
     "tile_matrix_f64": [_INT, _VOID, _VOID, _INT, _VOID, _INT, _VOID, _VOID],
-    "tile_nd_max_cols": [_INT, _INT, _INT],
+    "tile_tangent_nd_rows": [_INT, _INT, _INT],
     "tile_matvec_nd_f64": [_INT, _INT, _VOID, _VOID, _INT, _VOID, _INT,
                            _VOID, _INT, _INT, _INT, _INT, _VOID, _VOID, _INT,
                            _VOID],
@@ -93,11 +94,11 @@ _SIGNATURES = {
                             _VOID, _INT, _VOID, _INT, _INT, _INT, _INT,
                             _VOID, _VOID, _INT, _VOID],
 }
-# B6: (n, m, L, d0, s, occ, wcell, cell, lams, m_dirs, noise2, v, B, c,
-# out, scratch0, scratch1, stream)
-_SIGNATURES["ski_tangent_f64"] = ([_INT] * 5 + [_VOID] * 4
-                                  + [_INT, _DOUBLE, _VOID, _INT, _INT]
-                                  + [_VOID] * 4)
+# B6: (n, m, L, s, offs, occ, wcell, cell, lams, m_dirs, v, c, out,
+# scratch, L1, col_tpl, col_lpb, row_tpl, row_lpb, stream)
+_SIGNATURES["ski_tangent_f64"] = ([_INT] * 4 + [_VOID] * 5
+                                  + [_INT, _VOID, _INT, _VOID, _VOID]
+                                  + [_INT] * 5 + [_VOID])
 # B5 and B7: (n, m, L, s, offs, occ, wcell, cell, lams, noise2, v, B, c,
 # out, scratch, L1, col_tpl, col_lpb, row_tpl, row_lpb, stream)
 for _name in ("ski_gram_f64", "ski_bank_f64"):

@@ -15,10 +15,10 @@ for k1 and k2 alone, every tile outside the Wendland window skipped
 (:func:`support_tiles` is the rule's twin here).  B2 and B3
 (``csrc/tile_tangent.cu``, ``csrc/tile_jvp.cu``) run the same kernels on
 the closed-form gradient of k (``csrc/tangent_sweep.cuh``), with the same
-skip; B9 (``csrc/tile_tangent_nd.cu``) evaluates each tile in shared
-memory and contracts it with V there (``csrc/tile_sweep_nd.cuh``).  All
-run on a grid of row stripes x column segments.  A row slab is the value sweep on a pre-gathered batch of rows,
-counted under its own name.
+skip, and B9 (``csrc/tile_tangent_nd.cu``) on the product rule's gradient
+slots, projected on its directions once per output row.  All run on a
+grid of row stripes x column segments.  A row slab is the value sweep on
+a pre-gathered batch of rows, counted under its own name.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -35,16 +35,11 @@ from .ref import (N_PARAM_SLOTS, N_SLOTS, matrix_ref, product_matrix_ref,
                   product_tangent_matrices_ref, tangent_matrices_ref)
 
 ROW_CHUNK = 1024  # rows per dense block in the plain versions
-# the shared-memory tile sweep's grid (csrc/tile_sweep_nd.cuh, B9):
-# stripes of SWEEP_ROWS rows, column tiles of SWEEP_COLS, and enough
-# column segments for ROWS_BLOCKS_PER_SM blocks on each SM
-SWEEP_ROWS = 32
-SWEEP_COLS = 64
-ROWS_BLOCKS_PER_SM = 4
-# the value sweep's (csrc/value_sweep.cuh, B1, B3, B8, B12 and B13, and
-# B2 on stripes of tile_tangent_rows): 64-row stripes, 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM (two are
-# resident; more segments spread the few tiles a Wendland window keeps
-# over more blocks), and at least one tile for each of a block's
+# the value sweep's grid (csrc/value_sweep.cuh, B1, B3, B8, B12 and B13,
+# and B2 and B9 on stripes of tile_tangent_rows and tile_tangent_nd_rows):
+# 64-row stripes, 32-column tiles, VALUE_BLOCKS_PER_SM blocks on each SM
+# (two are resident; more segments spread the few tiles a Wendland window
+# keeps over more blocks), and at least one tile for each of a block's
 # VALUE_WARPS warps per segment (a slab of a few rows would otherwise
 # take a thousand one-tile segments, which the ordered reduce then sums
 # one by one)
@@ -52,13 +47,12 @@ VALUE_ROWS = 64
 VALUE_COLS = 32
 VALUE_BLOCKS_PER_SM = 8
 VALUE_WARPS = 8
-SWEEP_GRID = (SWEEP_ROWS, SWEEP_COLS, ROWS_BLOCKS_PER_SM, 1)
 VALUE_GRID = (VALUE_ROWS, VALUE_COLS, VALUE_BLOCKS_PER_SM, VALUE_WARPS)
 MAX_GRID_Y = 65535
 # |x| <= VALUE_BIG[dtype] keeps every difference finite (value_big)
 VALUE_BIG = {torch.float64: 8.0e307, torch.float32: 1.7e38}
-# the product kernels take up to MAX_AXES factors (csrc/tile_fns.cuh) and
-# MAX_DIRS_ND tangent directions (csrc/tile_sweep_nd.cuh)
+# the product kernels take up to MAX_AXES factors and MAX_DIRS_ND tangent
+# directions (csrc/tile_fns.cuh)
 MAX_AXES = 4
 MAX_DIRS_ND = 10
 
@@ -240,7 +234,7 @@ def tile_jvp(kind: str, params, pdot, x1, x2, v):
 
 
 def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None,
-                  grid=SWEEP_GRID):
+                  grid=VALUE_GRID):
     """B1, B2, B3, B8, B9 or a row slab (B12, B13) on the card: one call of
     the C symbol ``name``_<dtype> per chunk of columns of v, (m, n1, b)
     out (n1, b for a value sweep, ``pdots`` None), each added to
@@ -248,8 +242,8 @@ def _launch_sweep(name, lead, limit, params, pdots, x1, x2, v, count=None,
     (B1-B3 the kind's id; B8/B9 d and the packed per-axis ids); ``limit``:
     the max-cols symbol and its leading arguments (the element size is
     appended).  The column segments come from :func:`row_segments` on the
-    kernel's ``grid`` (SWEEP_GRID, VALUE_GRID or B2's
-    :func:`tangent_grid`); with two or more, the
+    kernel's ``grid`` (VALUE_GRID, or B2's :func:`tangent_grid` and B9's
+    :func:`tangent_nd_grid`); with two or more, the
     (segments, m, n1, w) scratch of the partial stripes is allocated
     here."""
     sfx = _cuda.dtype_suffix(v.dtype)
@@ -360,8 +354,19 @@ def tile_stacked_tangent_matvec_nd(kinds, params, pdots, x1, x2, v):
         return tile_stacked_tangent_matvec_nd_plain(kinds, params, pdots,
                                                     x1, x2, v)
     return _launch_sweep("tile_tangent_nd", (len(kinds), _kinds_code(kinds)),
-                         ("tile_nd_max_cols", int(pdots.shape[0]),
-                          len(kinds)), params, pdots, x1, x2, v)
+                         ("tile_matvec_max_cols",), params, pdots, x1, x2, v,
+                         grid=tangent_nd_grid(kinds, int(v.shape[1])))
+
+
+def tangent_nd_grid(kinds, b: int):
+    """B9's grid (rows, cols, per_sm, min_tiles) at width b, for
+    :func:`row_segments`: the value sweep's 32-column tiles on stripes of
+    ``tile_tangent_nd_rows`` rows (64, or 32 where a row's gradient slots
+    times the launch's width exceed 16 accumulators).  Asks the built
+    library (card only)."""
+    rows = _cuda.KERNELS.get("tile_tangent_nd_rows")(
+        len(kinds), _kinds_code(kinds), b)
+    return (rows, VALUE_COLS, VALUE_BLOCKS_PER_SM, VALUE_WARPS)
 
 
 def _kinds_code(kinds) -> int:
@@ -376,13 +381,14 @@ def _kinds_code(kinds) -> int:
 # B12 / B13: row slabs K(rows_x, x2) @ V of the stochastic solver
 # ---------------------------------------------------------------------------
 
-def row_segments(n1: int, n2: int, sms: int, grid=SWEEP_GRID):
+def row_segments(n1: int, n2: int, sms: int, grid=VALUE_GRID):
     """(segments, columns per segment) of a sweep's grid (rows, cols,
     per_sm, min_tiles): the column axis of n2 >= 1 is cut into segments of
     whole ``cols`` tiles, as many as bring the ceil(n1 / rows) row stripes
     to ``per_sm`` blocks per SM (never more than the tiles / ``min_tiles``;
-    one when the stripes alone do), covering n2 exactly.  SWEEP_GRID is
-    B9's; B1, B3, B8, B12 and B13 take VALUE_GRID, B2 :func:`tangent_grid`."""
+    one when the stripes alone do), covering n2 exactly.  B1, B3, B8, B12
+    and B13 take VALUE_GRID, B2 :func:`tangent_grid` and B9
+    :func:`tangent_nd_grid`."""
     rows, cols, per_sm, min_tiles = grid
     stripes = -(-n1 // rows)
     tiles = -(-n2 // cols)

@@ -14,14 +14,16 @@ W^T are banded maps around one row gather (``occ``: cell -> point row,
 with lam the real spectrum of the grid covariance's circulant embedding
 (length L, a power of two >= 2 m_grid - 1; the filler between the two
 mirrored halves is don't-care).  The CUDA kernels do the whole sandwich
-with a hand-written FFT.  B5 and B7 (``csrc/ski_gram.cu``,
-``csrc/ski_bank.cu``) run it on line transforms in shared memory
-(``csrc/ski_lines_1d.cuh``): a four-step split L = L1 L2 (4 launches,
-one scratch: :func:`gram_1d_plan`); :func:`fused_sandwich_four_step` is
-that order on ``torch.fft``, for the tests.  B6 (``csrc/ski_tangent.cu``)
-runs global-memory Stockham passes (``csrc/ski_fft.cuh``).  The spectrum
-is built outside the kernel (:func:`spectrum`), once per theta and solve,
-on ``torch.fft``; natural frequency order, so nothing is permuted.
+with a hand-written FFT.  B5, B6 and B7 (``csrc/ski_gram.cu``,
+``csrc/ski_tangent.cu``, ``csrc/ski_bank.cu``) run it on line transforms
+in shared memory (``csrc/ski_lines_1d.cuh``): a four-step split
+L = L1 L2, 4 launches and one scratch whatever the members or
+directions (:func:`gram_1d_plan`; B6 runs W^T and the forward transforms
+once for all its tangent spectra); :func:`fused_sandwich_four_step` and
+:func:`fused_tangent_four_step` are that order on ``torch.fft``, for the
+tests.  The spectrum is built outside the kernel (:func:`spectrum`), once
+per theta and solve, on ``torch.fft``; natural frequency order, so
+nothing is permuted.
 
 On a 2-D product grid (m1 x m2 cells, flat row-major) the same sandwich
 runs with the outer product of two axis spectra, lam1 (L1,) and lam2
@@ -320,10 +322,11 @@ def fused_gram_matvec(geom: FusedSKIGeometry, lam, noise2: float, v):
 
 
 def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
-    """B6: W (dK_grid/dtheta_i) W^T v for all m_dirs directions, one
-    launch: (m_dirs, n, b).  ``lams`` (m_dirs, L) tangent spectra (the
-    :func:`spectrum` of each first-column Jacobian row).  No noise: the
-    diagonal does not depend on theta."""
+    """B6: W (dK_grid/dtheta_i) W^T v for all m_dirs directions, one call
+    (4 launches: :func:`gram_1d_plan` with the directions): (m_dirs, n,
+    b).  ``lams`` (m_dirs, L) tangent spectra (the :func:`spectrum` of
+    each first-column Jacobian row).  No noise: the diagonal does not
+    depend on theta."""
     dev = _check(geom, lams, v)
     if dev.type == "cpu":
         return fused_tangent_matvecs_plain(geom, lams, v)
@@ -331,20 +334,9 @@ def fused_tangent_matvecs(geom: FusedSKIGeometry, lams, v):
     out = v.new_empty((m_dirs,) + tuple(v.shape))
     if out.numel() == 0:
         return out
-    t = geom.tensors(v.device, v.dtype)
-    cols = m_dirs * ((int(v.shape[1]) + 1) // 2)
-    # two ping-pong buffers of (cols, L) complex values
-    scratch = torch.empty((2, cols, geom.L, 2), dtype=v.dtype,
-                          device=v.device)
-    _cuda.call(f"ski_tangent_{_cuda.dtype_suffix(v.dtype)}",
-               int(v.shape[0]), geom.m_grid, geom.L, geom.offs[0],
-               len(geom.offs), t["occ"].data_ptr(), t["wcell"].data_ptr(),
-               t["cell"].data_ptr(), lams.data_ptr(), m_dirs, 0.0,
-               v.data_ptr(), 1, int(v.shape[1]), out.data_ptr(),
-               scratch[0].data_ptr(), scratch[1].data_ptr(),
-               _cuda.stream_ptr(v.device))
-    _cuda.LAUNCHES["ski_tangent"] += 1
-    return out
+    c = int(v.shape[1])
+    return _launch_lines_1d("ski_tangent", geom, lams, v, out,
+                            (m_dirs, v.data_ptr(), c), (c + 1) // 2, m_dirs)
 
 
 def fused_bank_matvec(geom: FusedSKIGeometry, lams, noise2: float, V):
@@ -362,18 +354,19 @@ def fused_bank_matvec(geom: FusedSKIGeometry, lams, noise2: float, V):
 
 
 # ---------------------------------------------------------------------------
-# B5's and B7's plan: four steps of shared-memory line transforms
+# B5's, B6's and B7's plan: four steps of shared-memory line transforms
 # ---------------------------------------------------------------------------
 
 class Gram1DPlan(NamedTuple):
-    """How B5 and B7 run one call (csrc/ski_lines_1d.cuh).
+    """How B5, B6 and B7 run one call (csrc/ski_lines_1d.cuh).
 
     cap:      the longest line transformed in shared memory.
     split:    (L1, L2), L = L1 L2 with L1 <= cap and 2 <= L2 <= cap.
     cols:     (tpl, lpb) of steps 1 and 3 (lines of L2 points).
-    rows:     (tpl, lpb) of step 2 (lines of L1 points).
+    rows:     (tpl, lpb) of step 2 (lines of L1 points; three buffers a
+              line where B6's directions keep the forward line).
     launches: kernel launches per call.
-    scratch:  complex values of the one scratch buffer, lines * L.
+    scratch:  complex values of the one scratch buffer, dirs * lines * L.
     """
     cap: int
     split: tuple
@@ -385,15 +378,18 @@ class Gram1DPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def gram_1d_plan(L: int, lines: int, itemsize: int,
-                 split: Optional[tuple] = None) -> Gram1DPlan:
-    """B5's and B7's plan for ``lines`` packed columns (B ceil(c / 2)) of
-    length L: the columns forward, the rows with the spectrum, the columns
-    back and W (four launches) on the split (L1, L2), by default
-    L2 = min(cap, 2^ceil(log2 L / 2)) and L1 = L / L2.  L > cap^2, or a
-    split that does not multiply to L or has a factor out of range, is
-    refused.  There is no one-line branch where L <= cap: one block per
-    packed column lost to the four-step on the card (PERF.md §6)."""
-    L, lines = int(L), int(lines)
+                 split: Optional[tuple] = None, dirs: int = 1) -> Gram1DPlan:
+    """The plan of B5 and B7 (``dirs`` = 1) and of B6 (``dirs`` tangent
+    spectra) for ``lines`` packed columns (B ceil(c / 2)) of length L:
+    the columns forward, the rows with each direction's spectrum, every
+    direction's columns back and W (four launches) on the split (L1, L2),
+    by default L2 = min(cap, 2^ceil(log2 L / 2)) and L1 = L / L2.  L >
+    cap^2, a row line that does not fit a block (at dirs > 1 three
+    buffers of L1 + 1: L1 <= 2048 in float64), or a split that does not
+    multiply to L or has a factor out of range, is refused.  There is no
+    one-line branch where L <= cap: one block per packed column lost to
+    the four-step on the card (PERF.md §6)."""
+    L, lines, dirs = int(L), int(lines), int(dirs)
     cap = line_cap(itemsize)
     if split is None:
         L2 = min(cap, 1 << (L.bit_length() // 2))
@@ -407,69 +403,85 @@ def gram_1d_plan(L: int, lines: int, itemsize: int,
         if L1 * L2 != L or not (1 <= L1 <= cap and 2 <= L2 <= cap):
             raise ValueError(f"split {split} is not L1 x L2 = {L} with "
                              f"L1 <= {cap} and 2 <= L2 <= {cap}")
+    bufs = 3 if dirs > 1 else 2
+    if line_smem_bytes(L1, 1, itemsize, bufs) > LINE_SMEM_LIMIT:
+        raise ValueError(f"the rows of L1 = {L1} do not fit a block with "
+                         f"{dirs} directions (three buffers a line)")
     return Gram1DPlan(cap, (L1, L2), line_kernel_plan(L2, L1, itemsize),
-                      line_kernel_plan(L1, L2, itemsize), 4, lines * L)
+                      line_kernel_plan(L1, L2, itemsize, bufs), 4,
+                      dirs * lines * L)
 
 
 def _launch_gram_1d(name, geom, lams, noise2, v):
     """B5 (v (n, b), lams (1, L)) or B7 (v (n, B, c), lams (B, L)) on the
-    card: one scratch allocation, one C call.  Every CG and Lanczos
-    iteration on near-grid data makes this call, so what depends only on
-    the geometry, the shape and the dtype (the plan on ``geom.split``, the
-    constants' pointers) is kept on the geometry."""
+    card: :func:`_launch_lines_1d` with the noise."""
+    B, c = (1, int(v.shape[1])) if v.ndim == 2 else (int(v.shape[1]),
+                                                       int(v.shape[2]))
     out = torch.empty_like(v)
     if out.numel() == 0:
         return out
-    key = (name, v.device, v.dtype, tuple(v.shape[1:]), geom.split)
+    return _launch_lines_1d(name, geom, lams, v, out,
+                            (float(noise2), v.data_ptr(), B, c),
+                            B * ((c + 1) // 2))
+
+
+def _launch_lines_1d(name, geom, lams, v, out, args, lines, dirs=1):
+    """One call of the four-step pipeline (B5, B6 or B7) on the card: one
+    scratch allocation, one C call ``name``_<dtype>(n, m, L, s, offs,
+    occ, wcell, cell, lams, *args, out, scratch, L1, plan..., stream),
+    counted in LAUNCHES[name].  Every CG and Lanczos iteration on
+    near-grid data makes such a call, so what depends only on the
+    geometry, the shape and the dtype (the plan on ``geom.split``, the
+    constants' pointers) is kept on the geometry."""
+    key = (name, v.device, v.dtype, tuple(v.shape[1:]), geom.split, dirs)
     call = geom._calls.get(key)
     if call is None:
         t = geom.tensors(v.device, v.dtype)
-        B, c = (1, int(v.shape[1])) if v.ndim == 2 else (int(v.shape[1]),
-                                                           int(v.shape[2]))
-        plan = gram_1d_plan(geom.L, B * ((c + 1) // 2), v.element_size(),
-                            geom.split)
+        plan = gram_1d_plan(geom.L, lines, v.element_size(), geom.split,
+                            dirs)
         call = geom._calls[key] = (
             f"{name}_{_cuda.dtype_suffix(v.dtype)}", plan.scratch,
             (geom.n, geom.m_grid, geom.L, len(geom.offs),
              t["offs"].data_ptr(), t["occ"].data_ptr(),
              t["wcell"].data_ptr(), t["cell"].data_ptr()),
-            (B, c), (plan.split[0], *plan.cols, *plan.rows))
-    fn, n_scratch, head, bc, tail = call
+            (plan.split[0], *plan.cols, *plan.rows))
+    fn, n_scratch, head, tail = call
     scratch = torch.empty((n_scratch, 2), dtype=v.dtype, device=v.device)
-    _cuda.call(fn, *head, lams.data_ptr(), float(noise2), v.data_ptr(), *bc,
-               out.data_ptr(), scratch.data_ptr(), *tail,
-               _cuda.stream_ptr(v.device))
+    _cuda.call(fn, *head, lams.data_ptr(), *args, out.data_ptr(),
+               scratch.data_ptr(), *tail, _cuda.stream_ptr(v.device))
     _cuda.LAUNCHES[name] += 1
     return out
 
 
 def _grid_conv_four_step(geom, lams, u, split):
-    """The convolution of :func:`_grid_conv_plain` on u (m, B, c), member q
-    through lams[q], in B5's and B7's order (csrc/ski_lines_1d.cuh): two
-    real columns of one member packed in one complex line (a zero half for
-    an odd c), then the four steps of split (L1, L2): the transforms over
-    n2 of the cells n1 + L1 n2 times w_L^{n1 k2}, over n1 with
-    lam[k2 + L2 k1] and back over k1 times w_L^{-n1 k2}, back over k2,
-    cropped to m."""
+    """The convolutions of :func:`_grid_conv_plain` on u (m, B, c), member
+    q of direction i through lams[i, q] (lams (dirs, B, L)), in the
+    kernels' order (csrc/ski_lines_1d.cuh): two real columns of one
+    member packed in one complex line (a zero half for an odd c), then
+    the four steps of split (L1, L2): the transforms over n2 of the cells
+    n1 + L1 n2 times w_L^{n1 k2} and over n1, once for every direction;
+    then per direction lam[k2 + L2 k1], back over k1 times w_L^{-n1 k2},
+    back over k2, cropped to m.  Returns (dirs, m, B, c)."""
     L, m = geom.L, geom.m_grid
     B, c = u.shape[1], u.shape[2]
     if c % 2:
         u = torch.cat([u, u.new_zeros((m, B, 1))], dim=2)
     Z = torch.complex(u[..., 0::2], u[..., 1::2])             # (m, B, P)
     x = torch.cat([Z, Z.new_zeros((L - m,) + Z.shape[1:])])
-    lam = lams.T[:, :, None]                                   # (L, B, 1)
     L1, L2 = split
     X = x.reshape((L2, L1) + x.shape[1:])                      # [n2, n1]
     e = (torch.arange(L2)[:, None] * torch.arange(L1)[None, :]) % L
     tw = torch.polar(torch.ones((L2, L1), dtype=u.dtype),
                      -2.0 * torch.pi * e.to(u.dtype) / L)[:, :, None, None]
-    Y = torch.fft.fft(X, dim=0) * tw                           # [k2, n1]
-    lam2 = lam.reshape((L1, L2) + lam.shape[1:]).transpose(0, 1)
-    Y = torch.fft.ifft(lam2 * torch.fft.fft(Y, dim=1), dim=1,
-                       norm="forward") * tw.conj()             # [k2, n1]
-    z = torch.fft.ifft(Y, dim=0, norm="forward").reshape(x.shape)[:m]
-    out = torch.stack([z.real, z.imag], dim=-1).reshape(m, B, -1)
-    return out[..., :c]
+    F = torch.fft.fft(torch.fft.fft(X, dim=0) * tw, dim=1)     # [k2, k1]
+    out = []
+    for lam in lams:                                           # (B, L)
+        lam2 = lam.T.reshape(L1, L2, B, 1).transpose(0, 1)     # [k2, k1]
+        Y = torch.fft.ifft(lam2 * F, dim=1, norm="forward") * tw.conj()
+        z = torch.fft.ifft(Y, dim=0, norm="forward").reshape(x.shape)[:m]
+        out.append(torch.stack([z.real, z.imag], dim=-1)
+                   .reshape(m, B, -1)[..., :c])
+    return torch.stack(out)
 
 
 def fused_sandwich_four_step(geom: FusedSKIGeometry, lams, noise2: float, V,
@@ -486,9 +498,27 @@ def fused_sandwich_four_step(geom: FusedSKIGeometry, lams, noise2: float, V,
     U = V[:, None] if V.ndim == 2 else V
     lams = lams[None] if lams.ndim == 1 else lams
     u = interp_scatter(t["idx"], t["w"], geom.m_grid, U)
-    ku = _grid_conv_four_step(geom, lams, u, split)
+    ku = _grid_conv_four_step(geom, lams[None], u, split)[0]
     out = interp_gather(t["idx"], t["w"], ku) + noise2 * U
     return out[:, 0] if V.ndim == 2 else out
+
+
+def fused_tangent_four_step(geom: FusedSKIGeometry, lams, v, split=None):
+    """B6's function in its order on v (n, b) with lams (m_dirs, L): W^T
+    and the forward transforms once, then each direction's spectrum, its
+    inverse transforms and W (:func:`_grid_conv_four_step`), on ``split``
+    (None: the geometry's, as the kernel takes it): (m_dirs, n, b).  The
+    CPU twin of the kernel's arithmetic, used by the tests; the card
+    holds the kernel against :func:`fused_tangent_matvecs_plain`."""
+    dirs = int(lams.shape[0])
+    split = gram_1d_plan(geom.L, 1, v.element_size(),
+                         geom.split if split is None else tuple(split),
+                         max(dirs, 1)).split
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v[:, None])
+    ku = _grid_conv_four_step(geom, lams[:, None], u, split)  # (dirs,m,1,b)
+    out = [interp_gather(t["idx"], t["w"], k[:, 0]) for k in ku]
+    return torch.stack(out) if out else v.new_zeros((0,) + tuple(v.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -724,10 +754,10 @@ class Gram2DPlan(NamedTuple):
     launches: int
 
 
-def line_smem_bytes(L: int, lines: int, itemsize: int) -> int:
-    """Shared bytes of a line kernel: the L twiddles and 2 lines of L + 1
-    complex values per line."""
-    return 2 * itemsize * (L + 2 * lines * (L + 1))
+def line_smem_bytes(L: int, lines: int, itemsize: int, bufs: int = 2) -> int:
+    """Shared bytes of a line kernel: the L twiddles and ``bufs`` buffers
+    of L + 1 complex values per line (two; three in B6's rows)."""
+    return 2 * itemsize * (L + bufs * lines * (L + 1))
 
 
 def line_cap(itemsize: int) -> int:
@@ -740,16 +770,18 @@ def line_cap(itemsize: int) -> int:
     return L
 
 
-def line_kernel_plan(L: int, lines: int, itemsize: int) -> tuple:
-    """(tpl, lpb) of a line kernel on ``lines`` lines of length L: L / 4
-    threads per line (one radix-4 butterfly each) up to LINE_TPL, as many
-    lines per block as make LINE_THREADS threads, no more than the lines
-    (rounded up to a power of two), and halved until the block fits
-    LINE_SMEM_TARGET."""
+def line_kernel_plan(L: int, lines: int, itemsize: int,
+                     bufs: int = 2) -> tuple:
+    """(tpl, lpb) of a line kernel on ``lines`` lines of length L with
+    ``bufs`` buffers a line: L / 4 threads per line (one radix-4
+    butterfly each) up to LINE_TPL, as many lines per block as make
+    LINE_THREADS threads, no more than the lines (rounded up to a power of
+    two), and halved until the block fits LINE_SMEM_TARGET."""
     tpl = min(max(L // 4, 1), LINE_TPL)
     lpb = max(LINE_THREADS // tpl, 1)
     lpb = min(lpb, 1 << max(int(lines) - 1, 0).bit_length())
-    while lpb > 1 and line_smem_bytes(L, lpb, itemsize) > LINE_SMEM_TARGET:
+    while lpb > 1 and line_smem_bytes(L, lpb, itemsize,
+                                      bufs) > LINE_SMEM_TARGET:
         lpb //= 2
     return tpl, lpb
 

@@ -337,6 +337,61 @@ def test_cuda_bank_four_step_matches_plain(cuda_device, dtype, tol, L,
     assert _relerr(one[:, 0], b5) < tol
 
 
+SKI_LINE_KERNELS = ("fs_columns_fwd", "fs_rows_conv", "fs_columns_inv",
+                    "w_apply_lines_1d")
+
+
+def _kernel_names(fn, tries=3):
+    """The names of the kernels that one call of fn launches on the card,
+    from torch.profiler's device events: the longest list of ``tries``
+    profiled calls (on the card the profiler has dropped one kernel of a
+    call; it never adds one)."""
+    from torch.profiler import ProfilerActivity, profile
+    lists = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        lists.append([e.name for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA])
+    return max(lists, key=len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("L,split", SKI_SPLITS)
+@pytest.mark.parametrize("b", [1, 8, 9, 17])
+@pytest.mark.parametrize("kind", ["k1", "k2"])
+def test_cuda_ski_tangent_four_step_matches_plain(cuda_device, kind, b, L,
+                                                  split, dtype, tol):
+    """B6 (3 directions for k1, 5 for k2) against its plain version on the
+    four steps of its plan and on the splits of SKI_SPLITS set on the
+    geometry; one call, counted once, launching the pipeline's four
+    kernels once each whatever the directions."""
+    op = _ski_geometry(SKI_RECORDS[L])
+    geom = op.fused_geom
+    assert geom.L == L
+    geom.split = split
+    theta = torch.tensor(THETAS[(kind, "mid")], dtype=torch.float64)
+    lams = tsf.spectrum(topers.ToeplitzOperator(kind, op.grid)
+                        .first_column_jacobian(theta), geom)
+    lams = lams.to(cuda_device, dtype)
+    v = torch.tensor(np.random.default_rng(b).standard_normal((geom.n, b)),
+                     device=cuda_device, dtype=dtype)
+    _cuda.reset_launches()
+    got = tsf.fused_tangent_matvecs(geom, lams, v)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"ski_tangent": 1}
+    assert got.shape == (lams.shape[0], geom.n, b)
+    assert _relerr(got, tsf.fused_tangent_matvecs_plain(geom, lams, v)) \
+        < tol
+    names = _kernel_names(lambda: tsf.fused_tangent_matvecs(geom, lams, v))
+    assert len(names) == 4
+    assert sorted(k for k in SKI_LINE_KERNELS for n in names if k in n) == \
+        sorted(SKI_LINE_KERNELS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [2048, 16384])
 def test_cuda_ski_gram_and_bank_replay_in_a_cuda_graph(cuda_device, L):
@@ -550,6 +605,86 @@ def test_cuda_product_value_sweep_matches_plain(cuda_device, d, family,
             assert _relerr(got, want) < tol, (kind, b)
             want = tkm.tile_matvec_nd_plain(kinds, p, rows, x2, v)
             assert _relerr(slab, want) < tol, (kind, b)
+
+
+def _product_case(rng, d, a, family, dtype, device, n1=333, n2=301):
+    """``family`` on axis a beside "se" on the others: kinds, params, the
+    natural pdots and ragged (n1, d), (n2, d) points on the card."""
+    kinds = ["se"] * d
+    kinds[a] = family
+    kind = "*".join(kinds)
+    theta = torch.tensor(sum((FAMILY_THETAS[k] for k in kinds), []),
+                         dtype=torch.float64)
+    p = tops.natural_params_nd(kind, theta).to(device, dtype)
+    pd = tops.natural_tangents_nd(kind, theta).to(device, dtype)
+    x1, x2 = (torch.tensor(rng.uniform(0.0, 8.0, (n, d)), device=device,
+                           dtype=dtype) for n in (n1, n2))
+    return kinds, p, pd, x1, x2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("family", sorted(FAMILY_THETAS))
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_cuda_product_tangent_sweep_matches_plain(cuda_device, d, family,
+                                                  dtype, tol):
+    """B9 (the value sweep's product gradient entry) against its plain
+    version: ``family`` on each axis in turn beside "se" on the others,
+    the natural directions at b = 1, 8, 9, 16 and 17 and m = 1 .. 10
+    random dense directions at b = 9, ragged n1 and n2 (at T0 = 3 most
+    pairs of a k1 or k2 axis lie beyond its window); one launch per call,
+    two calls give the same bits."""
+    rng = np.random.default_rng(20 * d + len(family))
+    for a in range(d):
+        kinds, p, pd, x1, x2 = _product_case(rng, d, a, family, dtype,
+                                             cuda_device)
+        dense = [torch.tensor(rng.standard_normal((m, d, 8)),
+                              device=cuda_device, dtype=dtype)
+                 for m in range(1, 11)]
+        for b, pdots in ([(b, pd) for b in (1, 8, 9, 16, 17)]
+                         + [(9, q) for q in dense]):
+            v = torch.tensor(rng.standard_normal((301, b)),
+                             device=cuda_device, dtype=dtype)
+            _cuda.reset_launches()
+            got = tkm.tile_stacked_tangent_matvec_nd(kinds, p, pdots, x1, x2,
+                                                     v)
+            again = tkm.tile_stacked_tangent_matvec_nd(kinds, p, pdots, x1,
+                                                       x2, v)
+            torch.cuda.synchronize()
+            assert dict(_cuda.LAUNCHES) == {"tile_tangent_nd": 2}
+            assert got.shape == (pdots.shape[0], 333, b)
+            assert torch.equal(got, again)
+            want = tkm.tile_stacked_tangent_matvec_nd_plain(kinds, p, pdots,
+                                                            x1, x2, v)
+            assert _relerr(got, want) < tol, (kinds, b, pdots.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_product_tangent_sweep_zeroes_beyond_a_k2_window(cuda_device,
+                                                              dtype):
+    """"k2*se" with rows of x1 far beyond the k2 window of every column
+    (finite, 1e6 away, and beyond +-VALUE_BIG): those rows are exactly 0
+    (the entry is 0 before any sincos or exp; the plain version gives 0
+    for the first and a nan, the sine of an overflowed argument, for the
+    second); every other row matches the plain version."""
+    rng = np.random.default_rng(7)
+    kinds, p, pd, x1, x2 = _product_case(rng, 2, 0, "k2", dtype,
+                                         cuda_device)
+    x1[40, 0] = 1e6
+    x1[70, 0] = 1.25 * tkm.VALUE_BIG[dtype]
+    v = torch.tensor(rng.standard_normal((301, 9)), device=cuda_device,
+                     dtype=dtype)
+    got = tkm.tile_stacked_tangent_matvec_nd(kinds, p, pd, x1, x2, v)
+    want = tkm.tile_stacked_tangent_matvec_nd_plain(kinds, p, pd, x1, x2, v)
+    torch.cuda.synchronize()
+    keep = torch.ones(333, dtype=torch.bool, device=cuda_device)
+    keep[[40, 70]] = False
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _relerr(got[:, keep], want[:, keep]) < tol
+    assert not bool(got[:, 40].any()) and not bool(want[:, 40].any())
+    assert not bool(got[:, 70].any())
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""B5's and B7's order of work on the CPU: the 1-D SKI gram as the card's
-kernels compute it (csrc/ski_lines_1d.cuh) and the host-side plan that
-sizes their launches and scratch.
+"""B5's, B6's and B7's order of work on the CPU: the 1-D SKI gram and
+stacked tangents as the card's kernels compute them
+(csrc/ski_lines_1d.cuh) and the host-side plan that sizes their launches
+and scratch.
 
 ``ski_fused.fused_sandwich_four_step`` packs two real columns of one
 member into one complex line and convolves it in four steps over a split
@@ -11,7 +12,14 @@ B7 against (``fused_gram_matvec_plain``, ``fused_bank_matvec_plain``), and
 to 1e-9 against the JAX package's fused kernels (Pallas, interpret mode)
 on the same record, the tolerance of ``test_torch_ski.py`` and
 ``test_torch_bank.py`` there.  ``gram_1d_plan`` is held to the split,
-launches and one scratch buffer the kernels were designed to."""
+launches and one scratch buffer the kernels were designed to.
+
+``ski_fused.fused_tangent_four_step`` is B6's order: W^T and the forward
+transforms once, then each direction's spectrum and its inverse
+transforms; held to 1e-12 against ``fused_tangent_matvecs_plain`` and to
+1e-9 against JAX's ``fused_tangent_matvecs`` (interpret mode), and its
+plan (three buffers a row line with several directions, one scratch of
+m_dirs lines) to what the kernels take."""
 
 import jax
 import jax.numpy as jnp
@@ -235,3 +243,117 @@ def test_plans_fit_a_block(item):
                 assert 1 <= tpl and tpl * lpb <= 1024
                 assert tsf.line_smem_bytes(length, lpb, item) <= \
                     tsf.LINE_SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# B6: the stacked tangents, W^T and the forward transforms once
+# ---------------------------------------------------------------------------
+
+def _tangent_spectra(op, kind):
+    """(m_dirs, L) tangent spectra of ``kind`` on op's grid (3 for k1, 5
+    for k2)."""
+    grid = topers.ToeplitzOperator(kind, op.grid)
+    return tsf.spectrum(grid.first_column_jacobian(_t(THETAS[kind])),
+                        op.fused_geom)
+
+
+@pytest.mark.parametrize("split", SPLITS)
+@pytest.mark.parametrize("b", [1, 8, 9])
+@pytest.mark.parametrize("kind", ["k1", "k2"])
+def test_tangent_four_step_twin_matches_the_plain_version(kind, b, split):
+    """B6's order against ``fused_tangent_matvecs_plain`` on a record with
+    m = 606 cells at L = 2048, on the plan's split and three others (L1 =
+    1: step 2 multiplies each direction's spectrum alone)."""
+    op, _ = _ski(_gappy(601), kind)
+    geom = op.fused_geom
+    lams = _tangent_spectra(op, kind)
+    v = _t(np.random.default_rng(b).standard_normal((geom.n, b)))
+    got = tsf.fused_tangent_four_step(geom, lams, v, split)
+    want = tsf.fused_tangent_matvecs_plain(geom, lams, v)
+    assert got.shape == (lams.shape[0], geom.n, b)
+    assert _rel(got.numpy(), want.numpy()) < TOL
+
+
+@pytest.fixture(scope="module")
+def jax_tangents():
+    """JAX's fused tangent kernel (Pallas, interpret mode) on the gappy
+    record of :func:`jax_kernels` (n = 1087, L = 4096) for k1 and k2 at
+    b = 8 and 9, computed once, with the inputs."""
+    x = _gappy(1200)
+    rng = np.random.default_rng(13)
+    out = {}
+    for kind in ("k1", "k2"):
+        jop = jopers.SKIOperator(kind, jnp.asarray(x), SIGMA_N, JITTER,
+                                 spacing=H, fused=True)
+        assert jop.fused
+        f = jax.jit(jop.tangent_matvecs)
+        for b in (8, 9):
+            v = rng.standard_normal((x.size, b))
+            out[kind, b] = (v, np.asarray(f(jnp.asarray(THETAS[kind]),
+                                            jnp.asarray(v))))
+    return x, out
+
+
+@pytest.mark.parametrize("split", [None, (32, 128), (1, 4096)])
+@pytest.mark.parametrize("b", [8, 9])
+@pytest.mark.parametrize("kind", ["k1", "k2"])
+def test_tangent_four_step_twin_matches_the_jax_kernel(jax_tangents, kind,
+                                                       b, split):
+    """B6's order against JAX's fused tangents on the same inputs, on the
+    plan's split of L = 4096 (64 x 64) and two others (JAX packs
+    directions and columns jointly at odd b; the function is the same)."""
+    x, out = jax_tangents
+    v, want = out[kind, b]
+    op, _ = _ski(x, kind)
+    assert op.fused_geom.L == 4096
+    got = tsf.fused_tangent_four_step(op.fused_geom,
+                                      _tangent_spectra(op, kind), _t(v),
+                                      split)
+    assert got.shape == want.shape
+    assert _rel(got.numpy(), want) < 1e-9
+
+
+@pytest.mark.parametrize("dirs", [3, 5])
+def test_plan_with_directions_at_the_ski_cell(dirs):
+    """B6 at the SKI cell (L = 16384, b = 9: 5 packed columns) in float64:
+    B5's split and steps 1 and 3, step 2 with three buffers a line (the
+    forward line kept beside the inverse's two), 4 launches whatever the
+    directions (the global passes took 16) and one buffer of every
+    direction's lines."""
+    plan = tsf.gram_1d_plan(16384, 5, 8, None, dirs)
+    gram = tsf.gram_1d_plan(16384, 5, 8)
+    assert plan.split == gram.split == (128, 128)
+    assert plan.launches == 4 and plan.cols == gram.cols
+    assert plan.rows == tsf.line_kernel_plan(128, 128, 8, 3)
+    assert plan.scratch == dirs * 5 * 16384
+    tpl, lpb = plan.rows
+    assert tsf.line_smem_bytes(128, lpb, 8, 3) <= tsf.LINE_SMEM_TARGET
+
+
+@pytest.mark.parametrize("item", [8, 4])
+def test_plans_with_directions_fit_a_block(item):
+    """With several directions every plan's step-2 block holds three
+    buffers a line within a block's shared memory, and a row line that
+    cannot (L1 > 2048 in float64, 4096 in float32) is refused, default
+    split or given."""
+    cap = tsf.line_cap(item)
+    row_cap = cap // 2
+    for lg in range(1, 2 * cap.bit_length() - 1):
+        L = 1 << lg
+        L1 = L // min(cap, 1 << (L.bit_length() // 2))
+        if L1 > row_cap:
+            with pytest.raises(ValueError, match="do not fit a block"):
+                tsf.gram_1d_plan(L, 5, item, None, 5)
+            continue
+        plan = tsf.gram_1d_plan(L, 5, item, None, 5)
+        assert plan.split == tsf.gram_1d_plan(L, 5, item).split
+        tpl, lpb = plan.rows
+        assert 1 <= tpl and tpl * lpb <= 1024
+        assert L // plan.split[1] % 1 == 0 and plan.split[1] % lpb == 0
+        assert tsf.line_smem_bytes(plan.split[0], lpb, item, 3) <= \
+            tsf.LINE_SMEM_LIMIT
+        assert plan.scratch == 5 * 5 * L
+    with pytest.raises(ValueError, match="do not fit a block"):
+        tsf.gram_1d_plan(2 * row_cap * cap, 5, item, (2 * row_cap, cap), 3)
+    assert tsf.gram_1d_plan(row_cap * cap, 5, item, (row_cap, cap),
+                            3).split == (row_cap, cap)

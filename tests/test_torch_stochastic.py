@@ -211,17 +211,22 @@ def test_row_slab_plain_versions_match_matvec_rows(kind, b, n2, k):
                                   (2048, 1000), (33, 64), (1, 1)])
 @pytest.mark.parametrize("sms", [132, 7])
 def test_row_segments_cover_the_columns(b, n2, sms):
-    """The split grid: whole column tiles per segment, segments covering
-    n2 exactly, at most 65,535 of them, and the block target met where
-    the columns allow it."""
-    segs, seg_cols = tkm.row_segments(b, n2, sms)
-    tiles = -(-n2 // tkm.SWEEP_COLS)
-    stripes = -(-b // tkm.SWEEP_ROWS)
-    assert seg_cols % tkm.SWEEP_COLS == 0
+    """The split grid on the 32-row stripes that B2 and B9 take where a
+    lane owns one row (tangent_grid, tangent_nd_grid): whole column tiles
+    per segment, segments covering n2 exactly, at most 65,535 of them, a
+    tile for each warp of a block wherever n2 has that many, and the block
+    target met where the columns allow it."""
+    grid = (32, tkm.VALUE_COLS, tkm.VALUE_BLOCKS_PER_SM, tkm.VALUE_WARPS)
+    rows, cols, per_sm, min_tiles = grid
+    segs, seg_cols = tkm.row_segments(b, n2, sms, grid)
+    tiles = -(-n2 // cols)
+    stripes = -(-b // rows)
+    assert seg_cols % cols == 0
     assert (segs - 1) * seg_cols < n2 <= segs * seg_cols
     assert 1 <= segs <= min(tiles, tkm.MAX_GRID_Y)
-    target = tkm.ROWS_BLOCKS_PER_SM * sms
-    assert stripes * segs >= min(target, stripes * tiles) // 2
+    assert segs == 1 or seg_cols // cols >= min_tiles
+    assert stripes * segs >= min(per_sm * sms,
+                                 stripes * (tiles // min_tiles)) // 2
 
 
 @pytest.mark.parametrize("b,n2", [(2048, 65536), (1000, 65537), (8, 65536),
