@@ -44,6 +44,11 @@ started together) and then:
      8, 1, 256, float32) and on a field whose time axis is longer than its
      float64 line cap (L1 = 8192: axis 0 on the global passes), each case
      with its plan (line cap, branches, launches per call, scratch bytes);
+     B11 at the product-SKI cell (m = 2, b = 9, float32; m = 6, "k2*se")
+     and on the long field (B10's gram once per direction), each case
+     with the same plan; B4 at the predict cross block (8760 x 512) for
+     k1, k2 and "se" and at an odd n2 = 511 (k2), each with its
+     support_share;
      B12 and B13 at b = 2048 rows of n2 =
      65536 with k = 1, 9 and 256 columns, a ragged b = 1000 of n2 = 65537,
      b = 8, and one float32 case, and B13 on "k2*se" at k = 9; B3 at B2's
@@ -217,9 +222,10 @@ tensor cores).  Each arithmetic operation, comparison and each sin, cos,
 exp or division counts as one operation (a lower count than the hardware
 spends, so the bound stays a lower bound).  Per covariance entry: B1 and
 B4 count the value (EVAL_OPS), B1 adds 2 b multiply-adds with V, and B1
-counts only the entries that its inputs need: for k1 and k2 those inside
-the Wendland window (kernel_matvec.support_entries), and so do B2 and
-B3.  B2 counts the value and its closed-form gradient over the kind's
+and B4 count only the entries that their inputs need: for k1 and k2 those
+inside the Wendland window (kernel_matvec.support_entries; B4 writes the
+others as 0 and moves all n1 n2 of them), and so do B2 and B3.  B2
+counts the value and its closed-form gradient over the kind's
 natural slots (GRAD_OPS) and 2 NS b for contracting the NS gradient tiles
 with V, since the m directions can be applied afterwards to the (NS, n1,
 b) result at a cost independent of n2.  B3 counts the value and gradient
@@ -746,20 +752,16 @@ def kernel_phase(x, xstar, dev, rng, seed):
             v = torch.tensor(rng.standard_normal((N, b)), device=dev)
             cases["tile_tangent"].append(b2_case(kind, p, pd, x, x, v,
                                                  "theta"))
-        # B4: the predict cross block K(x, x*), (8760, 512)
-        got = kt.tile_matrix(kind, p, x, xstar)
-        want = kt.tile_matrix_plain(kind, p, x, xstar)
-        torch.cuda.synchronize()
-        err, rel = errors(got, want)
-        entries = N * N_STAR
-        bms, by = bound(8.0 * (N + N_STAR + entries + 8),
-                        entries * EVAL_OPS[kind], 0.0)
-        cases["tile_matrix"].append(dict(
-            kind=kind, n1=N, n2=N_STAR, max_abs_err=err, max_rel_err=rel,
-            ms=time_ms(lambda: kt.tile_matrix(kind, p, x, xstar), 10),
-            plain_ms=time_ms(lambda: kt.tile_matrix_plain(kind, p, x, xstar),
-                             3),
-            bound_ms=bms, bound_by=by))
+        # B4: the predict cross block K(x, x*), (8760, 512); k2 also at
+        # an odd n2 = 511 (every other row's 16-byte stores misaligned)
+        cases["tile_matrix"].append(b4_case(kind, p, x, xstar, "predict"))
+        if kind == "k2":
+            cases["tile_matrix"].append(b4_case(
+                kind, p, x, xstar[:N_STAR - 1].contiguous(), "odd_n2"))
+    # B4 on a family without a window: every entry evaluated
+    p = ops.natural_params("se", torch.tensor([math.log(40.0)],
+                                              dtype=torch.float64)).to(dev)
+    cases["tile_matrix"].append(b4_case("se", p, x, xstar, "predict"))
     b1_extra_cases(cases, x, dev, rng)
     b2_extra_cases(cases, x, dev, rng)
     b2_stochastic_case(cases, dev, rng, seed)
@@ -770,6 +772,28 @@ def kernel_phase(x, xstar, dev, rng, seed):
     rows_kernel_cases(cases, dev, rng, seed)
     check_cases(cases, SOURCES)
     return cases, crossover
+
+
+def b4_case(kind, p, x1, x2, case):
+    """One B4 case against its plain version, timed, with the share of
+    entries inside the Wendland window (support_share; 1 for the kinds
+    without one): the kernel stores the others as 0 before any sin or
+    exp.  The bound writes the block once and evaluates the in-support
+    entries alone."""
+    n1, n2 = x1.shape[0], x2.shape[0]
+    got = kt.tile_matrix(kind, p, x1, x2)
+    want = kt.tile_matrix_plain(kind, p, x1, x2)
+    torch.cuda.synchronize()
+    err, rel = errors(got, want)
+    del got, want
+    sup = km.support_entries(kind, p, x1, x2)
+    bms, by = bound(8.0 * (n1 + n2 + n1 * n2 + 8), sup * EVAL_OPS[kind], 0.0)
+    return dict(kind=kind, case=case, n1=n1, n2=n2, max_abs_err=err,
+                max_rel_err=rel, support_share=sup / (n1 * n2),
+                ms=time_ms(lambda: kt.tile_matrix(kind, p, x1, x2), 10),
+                plain_ms=time_ms(lambda: kt.tile_matrix_plain(kind, p, x1,
+                                                              x2), 3),
+                bound_ms=bms, bound_by=by)
 
 
 def b1_case(kind, p, x1, x2, v, case):
@@ -1291,9 +1315,11 @@ def nd_kernel_cases(cases, dev, rng, seed):
     cell at b = 9 (training CG), 8 (Lanczos), 1 (value CG), 256 (the
     predict variance chunk) and a float32 case, and at b = 9 on a long
     field (LONG_FIELD_SHAPE: L1 = 8192, beyond the float64 line cap, so
-    axis 0 takes the global passes); B11 at m = 2, b = 9 (and float32).
-    Each B10 case carries its plan: the line cap, the branch of each axis
-    and the kernel launches per call."""
+    axis 0 takes the global passes); B11 with b = 9 at m = 2 on the cell
+    (and float32), at m = 6 ("k2*se") on the cell and at m = 2 on the
+    long field (B10's gram once per direction).  Each B10 and B11 case
+    carries its plan: the line cap, the branch of each axis, the kernel
+    launches per call and the scratch bytes (b11_case)."""
     x_np, _, xstar_np = make_scattered_field(seed)
     x = torch.tensor(x_np, device=dev)
     xstar = torch.tensor(xstar_np, device=dev)
@@ -1371,30 +1397,52 @@ def nd_kernel_cases(cases, dev, rng, seed):
                         geom, lams, op.noise2, v), 10),
                     bound_ms=bms, bound_by=by))
                 del got, want
-    xf, _, _ = make_field(seed)
-    op = opers.select_operator(ND_KIND, torch.tensor(xf, device=dev),
-                               FIELD_SIGMA_N, 1e-8)
+    for kind, case, shape, dtypes in (
+            (ND_KIND, "cell", FIELD_SHAPE, (torch.float64, torch.float32)),
+            ("k2*se", "cell", FIELD_SHAPE, (torch.float64,)),
+            (ND_KIND, "beyond_cap", LONG_FIELD_SHAPE, (torch.float64,))):
+        xf, _, _ = make_field(seed, shape=shape)
+        op = opers.select_operator(kind, torch.tensor(xf, device=dev),
+                                   FIELD_SIGMA_N, 1e-8)
+        geom = op.fused_geom
+        th = torch.tensor(ND_THETA[kind], dtype=torch.float64, device=dev)
+        for dtype in dtypes:
+            cases["ski_tangent_2d"].append(b11_case(kind, case, op, th,
+                                                    dtype, rng))
+
+
+def b11_case(kind, case, op, theta, dtype, rng, b=9):
+    """One B11 case against its plain version, timed, with its plan
+    (gram_2d_plan with the directions): the line cap, the branch of each
+    axis (the shared-memory line kernels or the global passes), whether
+    it runs B10's gram once per direction, the launches per call and the
+    scratch bytes."""
     geom = op.fused_geom
-    for dtype in (torch.float64, torch.float32):
-        pairs = tuple(pr.to(dtype) for pr in sf.tangent_spectra_nd(
-            op._kron, theta, geom, torch.float64))
-        v = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev,
-                         dtype=dtype)
-        got = sf.fused_tangent_matvecs_nd(geom, pairs, v)
-        want = sf.fused_tangent_matvecs_nd_plain(geom, pairs, v)
-        torch.cuda.synchronize()
-        err, rel = errors(got, want)
-        m = int(pairs[0].shape[0])
-        bms, by = ski_bound_2d(geom, 9, m, dtype)
-        cases["ski_tangent_2d"].append(dict(
-            kind=ND_KIND, n=geom.n, m_grid=geom.m_grid, L=list(geom.Ls), b=9,
-            m=m, dtype=str(dtype).split(".")[-1], max_abs_err=err,
-            max_rel_err=rel,
-            ms=time_ms(lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v),
-                       20),
-            plain_ms=time_ms(lambda: sf.fused_tangent_matvecs_nd_plain(
-                geom, pairs, v), 10),
-            bound_ms=bms, bound_by=by))
+    pairs = tuple(pr.to(dtype) for pr in sf.tangent_spectra_nd(
+        op._kron, theta, geom, torch.float64))
+    m = int(pairs[0].shape[0])
+    item = torch.finfo(dtype).bits // 8
+    plan = sf.gram_2d_plan(geom.shape, geom.Ls, b, item, None, m)
+    v = torch.tensor(rng.standard_normal((geom.n, b)), device=theta.device,
+                     dtype=dtype)
+    got = sf.fused_tangent_matvecs_nd(geom, pairs, v)
+    want = sf.fused_tangent_matvecs_nd_plain(geom, pairs, v)
+    torch.cuda.synchronize()
+    err, rel = errors(got, want)
+    del got, want
+    bms, by = ski_bound_2d(geom, b, m, dtype)
+    return dict(
+        kind=kind, case=case, n=geom.n, m_grid=geom.m_grid,
+        shape=list(geom.shape), L=list(geom.Ls), b=b, m=m,
+        dtype=str(dtype).split(".")[-1], line_cap=plan.cap,
+        shared_lines=[L <= plan.cap for L in geom.Ls],
+        per_direction=plan.per_direction, kernel_launches=plan.launches,
+        scratch_bytes=2 * item * sum(plan.scratch), max_abs_err=err,
+        max_rel_err=rel,
+        ms=time_ms(lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v), 20),
+        plain_ms=time_ms(lambda: sf.fused_tangent_matvecs_nd_plain(
+            geom, pairs, v), 10),
+        bound_ms=bms, bound_by=by)
 
 
 def rows_bound(kinds, b, n2, k, dtype):
@@ -1885,14 +1933,15 @@ def check_cases(cases, names):
 # workflow launches most (k2, training CG / gradient, predict cross block)
 HEADLINE = {"tile_matvec": dict(kind="k2", case="theta", n1=N, b=9),
             "tile_tangent": dict(kind="k2", case="theta", b=9),
-            "tile_matrix": dict(kind="k2"),
+            "tile_matrix": dict(kind="k2", case="predict"),
             "ski_gram": dict(case="cell", b=9, dtype="float64"),
             "ski_tangent": dict(kind="k2", dtype="float64"),
             "ski_bank": dict(case="cell", B=4, c=9, dtype="float64"),
             "tile_matvec_nd": dict(n1=N_ND_IRREGULAR, b=9),
             "tile_tangent_nd": dict(kind=ND_KIND, case="stochastic"),
             "ski_gram_2d": dict(case="cell", b=9, dtype="float64"),
-            "ski_tangent_2d": dict(dtype="float64"),
+            "ski_tangent_2d": dict(kind=ND_KIND, case="cell",
+                                   dtype="float64"),
             "tile_rows": dict(b=2048, n2=STOCHASTIC_N, k=9,
                               dtype="float64"),
             "tile_rows_nd": dict(kind="se*matern32", b=2048,

@@ -6,16 +6,19 @@ TREE is the root of a checkout (this one, or a parent commit unpacked
 with ``git archive`` into a git-ignored directory); the script imports
 that tree's ``repro_torch`` and ``chip_smoke.py``, builds its kernels and
 prints one JSON line: LABEL and the time per call (``chip_smoke.time_ms``,
-median of single calls) of B1 (k2, n = 8760, b = 9), B2 (k2, m = 5, and
+median of single calls) of B1 (k2, n = 8760, b = 9), B4 (the predict cross block, 8760 x 512, k2;
+alone also at n2 = 511 and for "se"), B2 (k2, m = 5, and
 at the stochastic 1-D stage's shape: "se", n = 65536, b = 9, m = 1), B3
 (k2, b = 9 and 1), B8 and B9 (4096 scattered (n, 2) points, "se*matern32",
 b = 9; B9 also at the stochastic (n, 2) stage's shape, 65536 points,
 m = 2), B5 (b = 9), B6 (k2, m = 5) and B7 (B = 4, c = 9) on the SKI
 cell of ``chip_smoke.py``, B10 (its product-SKI cell, b = 1, 9 and 256)
-and B11 (m = 2, b = 9), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
+and B11 (b = 9: m = 2 and, "k2*se", m = 6 on the cell, m = 2 on the long
+field beyond the float64 line cap), B12 (b = 2048 and 8 rows of n2 = 65536, "se", k = 9) and B13
 (b = 2048, "se*matern32", k = 9 and 256), and B5 at b = 256.  The keys
-ending in ``_dev`` give the card's time alone for B2, B3 (b = 9), B5
-(b = 9 and 256), B6, B7, B8, B9 (4096 points), B10 and B13: 20 calls
+ending in ``_dev`` give the card's time alone for B2, B3 (b = 9), B4, B5
+(b = 9 and 256), B6, B7, B8, B9 (4096 points), B10, B11 (on the cell) and
+B13: 20 calls
 captured in one CUDA graph and replayed
 (CUDA events around the replay, over 20), so the host's work per call,
 which the other keys include, drops out.  Compare
@@ -40,6 +43,7 @@ def main(tree: str, label: str) -> None:
     import chip_smoke as cs
     from repro_torch.kernels import _cuda
     from repro_torch.kernels import kernel_matvec as km
+    from repro_torch.kernels import kernel_tile as kt
     from repro_torch.kernels import operators as opers
     from repro_torch.kernels import ops
     from repro_torch.kernels import ski_fused as sf
@@ -94,6 +98,14 @@ def main(tree: str, label: str) -> None:
         lambda: km.tile_stacked_tangent_matvec("k2", p2, pd, x, x, v9))
     res["B3_k2_b9_dev"] = graph_ms(
         lambda: km.tile_jvp("k2", p2, pdot, x, x, v9))
+    xs512 = torch.tensor(np.sort(rng.uniform(0, 8760, 512)), device=dev)
+    xs511 = xs512[:511].contiguous()
+    res["B4_k2"] = cs.time_ms(lambda: kt.tile_matrix("k2", p2, x, xs512), 20)
+    res["B4_k2_dev"] = graph_ms(lambda: kt.tile_matrix("k2", p2, x, xs512))
+    res["B4_k2_n511_dev"] = graph_ms(
+        lambda: kt.tile_matrix("k2", p2, x, xs511))
+    p_se = ops.natural_params("se", t64([np.log(40.0)])).to(dev)
+    res["B4_se_dev"] = graph_ms(lambda: kt.tile_matrix("se", p_se, x, xs512))
     v1 = v9[:, :1].contiguous()
     res["B3_k2_b1"] = cs.time_ms(
         lambda: km.tile_jvp("k2", p2, pdot, x, x, v1), 10)
@@ -169,6 +181,25 @@ def main(tree: str, label: str) -> None:
     v9 = torch.tensor(rng.standard_normal((geom.n, 9)), device=dev)
     res["B11_m2"] = cs.time_ms(
         lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v9), 20)
+    res["B11_m2_dev"] = graph_ms(
+        lambda: sf.fused_tangent_matvecs_nd(geom, pairs, v9))
+    th6 = t64(cs.ND_THETA["k2*se"]).to(dev)
+    op6 = opers.select_operator("k2*se", torch.tensor(xf, device=dev),
+                                cs.FIELD_SIGMA_N, 1e-8)
+    pairs6 = sf.tangent_spectra_nd(op6._kron, th6, op6.fused_geom,
+                                   torch.float64)
+    res["B11_k2se_m6"] = cs.time_ms(
+        lambda: sf.fused_tangent_matvecs_nd(op6.fused_geom, pairs6, v9), 20)
+    res["B11_k2se_m6_dev"] = graph_ms(
+        lambda: sf.fused_tangent_matvecs_nd(op6.fused_geom, pairs6, v9))
+    xl, _, _ = cs.make_field(0, shape=cs.LONG_FIELD_SHAPE)
+    opl = opers.select_operator(cs.ND_KIND, torch.tensor(xl, device=dev),
+                                cs.FIELD_SIGMA_N, 1e-8)
+    pairsl = sf.tangent_spectra_nd(opl._kron, th.to(dev), opl.fused_geom,
+                                   torch.float64)
+    vl = torch.tensor(rng.standard_normal((opl.fused_geom.n, 9)), device=dev)
+    res["B11_beyond_cap"] = cs.time_ms(
+        lambda: sf.fused_tangent_matvecs_nd(opl.fused_geom, pairsl, vl), 20)
     xs, _, _ = cs.make_stochastic_data(0, 65536)
     xs = torch.tensor(xs, device=dev)
     ps = ops.natural_params("se", t64(cs.ROWS_THETA["se"])).to(dev)

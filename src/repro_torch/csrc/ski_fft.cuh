@@ -1,21 +1,20 @@
-// The global-memory Stockham passes of the SKI sandwiches on 2-D planes:
-// B11 (ski_fft_2d.cuh, sandwich_2d) runs its whole transforms on them, and
-// B10 (ski_lines_2d.cuh) takes them for an axis longer than its
-// shared-memory line cap.  The 1-D sandwiches (B5, B6, B7) run on line
-// transforms in shared memory instead (ski_lines_1d.cuh), which reuse
-// this file's complex type and radix-4/2 butterfly.
+// The global-memory Stockham passes of B10's 2-D product-SKI gram
+// (ski_lines_2d.cuh) for an axis longer than its shared-memory line cap,
+// and the complex type and radix-4/2 butterfly that every SKI line kernel
+// (ski_lines_2d.cuh, ski_lines_1d.cuh: B5, B6, B7, B10, B11) reuses.
 //
 // fft_stage is one radix-R Stockham pass along an axis of every (L1, L2)
 // complex plane, reading and writing the plane with that axis's stride,
-// so the two axes of a 2-D transform need no transpose between them; the
-// first inverse pass may multiply by the spectrum as it loads.  Every
-// kernel here puts its whole index space on gridDim.x, so no count of
-// packed planes meets the 65,535 limit of gridDim.y.
+// so the two axes need no transpose between them; the first inverse pass
+// may multiply by that axis's spectrum as it loads.  Every kernel here
+// puts its whole index space on gridDim.x, so no count of packed planes
+// meets the 65,535 limit of gridDim.y.
 //
 // What bounds it on an H100: each pass reads and writes every plane once
 // (bytes), and a transform takes log4 L of them, one launch each; the
-// line kernels exist to cut both.  What the design does about it:
-// radix-4 passes halve the passes of radix 2; consecutive threads take
+// line kernels exist to cut both, and only a line too long for a block's
+// shared memory comes here.  What the design does about it: radix-4
+// passes halve the passes of radix 2; consecutive threads take
 // consecutive addresses along the other axis; twiddles come from sincospi
 // in double on exact power-of-two fractions (never sin of a large
 // argument).
@@ -77,52 +76,38 @@ __device__ __forceinline__ void butterfly(cplx<T>* v, int k, int Ns) {
 // (outer, len, inner) with (1, L1, L2) for axis 0 and (L1, L2, 1) for
 // axis 1, so consecutive threads take consecutive `inner` addresses.
 // Every index lives on gridDim.x (64-bit thread index), so no count of
-// planes meets the 65,535 limit of gridDim.y.  Plane `col` of dst reads
-// plane col % cols_src of src; a non-null lam2 scales the loads by the
-// spectrum of dir = col / P: lam2[dir, r2], times lam1[dir, r1] where lam1
-// is non-null (the outer product of the axis spectra); lam1 alone scales
-// by lam1[dir, r1] (the 2-D gram's axis-0 convolution, ski_lines_2d.cuh).  The multiply is
-// folded into the first inverse pass.
+// planes meets the 65,535 limit of gridDim.y.  A non-null lam scales the
+// loads by the axis spectrum at the point's position along the axis (the
+// spectrum multiply, folded into the first inverse pass).
 template <typename T, int R, bool INV>
 __global__ void fft_stage(const cplx<T>* __restrict__ src,
                           cplx<T>* __restrict__ dst, int L1, int L2,
-                          int axis, int Ns, int cols_out, int cols_src,
-                          int P, const T* __restrict__ lam1,
-                          const T* __restrict__ lam2) {
+                          int axis, int Ns, int cols,
+                          const T* __restrict__ lam) {
   const int len = axis == 0 ? L1 : L2;
   const int inner = axis == 0 ? L2 : 1;
   const int stride = len / R;
   const long long plane = (long long)L1 * L2;
   const long long per = plane / R;
   const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= per * cols_out) return;
+  if (g >= per * cols) return;
   const int col = (int)(g / per);
   const long long w = g % per;
   const int i = (int)(w % inner);
   const long long t = w / inner;
   const int j = (int)(t % stride);
   const int o = (int)(t / stride);
-  const cplx<T>* in = src + (size_t)(col % cols_src) * plane;
+  const cplx<T>* in = src + (size_t)col * plane;
   cplx<T>* out = dst + (size_t)col * plane;
   const size_t row0 = (size_t)o * len;
   cplx<T> v[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
     v[r] = in[(row0 + j + r * stride) * inner + i];
-  if (lam1 != nullptr || lam2 != nullptr) {
-    const int dir = col / P;
-    const T* l1 = lam1 != nullptr ? lam1 + (size_t)dir * L1 : nullptr;
-    const T* l2 = lam2 != nullptr ? lam2 + (size_t)dir * L2 : nullptr;
+  if (lam != nullptr) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      const int pos = j + r * stride;
-      T l;
-      if (l2 != nullptr) {
-        l = axis == 0 ? l2[i] : l2[pos];
-        if (l1 != nullptr) l *= axis == 0 ? l1[pos] : l1[o];
-      } else {
-        l = axis == 0 ? l1[pos] : l1[o];
-      }
+      const T l = lam[j + r * stride];
       v[r].re *= l;
       v[r].im *= l;
     }
@@ -146,16 +131,15 @@ inline bool fits_grid(long long threads) {
 
 template <typename T, bool INV>
 cudaError_t launch_stage(int R, const cplx<T>* src, cplx<T>* dst, int L1,
-                         int L2, int axis, int Ns, int cols_out,
-                         int cols_src, int P, const T* lam1, const T* lam2,
+                         int L2, int axis, int Ns, int cols, const T* lam,
                          cudaStream_t st) {
-  const unsigned int grid = blocks_for((long long)L1 * L2 / R * cols_out);
+  const unsigned int grid = blocks_for((long long)L1 * L2 / R * cols);
   if (R == 2)
-    fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(
-        src, dst, L1, L2, axis, Ns, cols_out, cols_src, P, lam1, lam2);
+    fft_stage<T, 2, INV><<<grid, kThreads, 0, st>>>(src, dst, L1, L2, axis,
+                                                    Ns, cols, lam);
   else
-    fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(
-        src, dst, L1, L2, axis, Ns, cols_out, cols_src, P, lam1, lam2);
+    fft_stage<T, 4, INV><<<grid, kThreads, 0, st>>>(src, dst, L1, L2, axis,
+                                                    Ns, cols, lam);
   return cudaGetLastError();
 }
 
@@ -165,23 +149,20 @@ __host__ __device__ inline int log2_of(int L) {
   return k;
 }
 
-// The passes of one axis of the (L1, L2) planes: Stockham radix 4 (one
-// radix-2 pass first when log2 L is odd).  first_lam1/2: the spectra of
-// the first pass (lam2 null: no multiply).
+// The passes of one axis of the cols (L1, L2) planes: Stockham radix 4
+// (one radix-2 pass first when log2 L is odd), ping-ponging between
+// bufs[*cur] and bufs[*cur ^ 1].  first_lam: the spectrum of the first
+// pass (null: no multiply).
 template <typename T, bool INV>
 cudaError_t axis_passes(cplx<T>** bufs, int* cur, int L1, int L2, int axis,
-                        int cols_out, int cols_src, int P,
-                        const T* first_lam1, const T* first_lam2,
-                        cudaStream_t st) {
+                        int cols, const T* first_lam, cudaStream_t st) {
   const int L = axis == 0 ? L1 : L2;
   const int lg = log2_of(L);
   for (int Ns = 1; Ns < L;) {
     const int R = (Ns == 1 && (lg & 1)) ? 2 : 4;
-    const bool first = Ns == 1;
     cudaError_t err = launch_stage<T, INV>(
-        R, bufs[*cur], bufs[*cur ^ 1], L1, L2, axis, Ns, cols_out,
-        first ? cols_src : cols_out, P, first ? first_lam1 : nullptr,
-        first ? first_lam2 : nullptr, st);
+        R, bufs[*cur], bufs[*cur ^ 1], L1, L2, axis, Ns, cols,
+        Ns == 1 ? first_lam : nullptr, st);
     if (err != cudaSuccess) return err;
     *cur ^= 1;
     Ns *= R;

@@ -3,16 +3,15 @@
 //
 // Replaces fused_gram_matvec_nd (src/repro/kernels/ski_fused.py), the TPU
 // kernel that every CG and Lanczos iteration on a gappy 2-D field
-// launches.  The sandwich is the one of ski_fft_2d.cuh; B10 runs it as
-// shared-memory line convolutions over the occupied lines only
-// (ski_lines_2d.cuh: the design, what bounds it and the long-axis
-// branch).  Plain C interface for ctypes; returns the CUDA error code
-// (0 = launched).
+// launches.  It runs as shared-memory line convolutions over the occupied
+// lines only (ski_lines_2d.cuh: the function, the design, what bounds it
+// and the long-axis branch), one direction with the noise.  Plain C
+// interface for ctypes; returns the CUDA error code (0 = launched).
 //
 // What bounds it on an H100: at the main path's shape (n ~ 6960 in a
 // 134 x 70 grid, L1 x L2 = 512 x 256, b = 9, float64) the function must
-// move ~1.2 MB (~0.4 us at 3.35 TB/s) and do ~2e7 operations (~0.7 us at
-// 34 TFLOP/s fp64), far below what three launches cost: the design is
+// move ~1.9 MB (~0.57 us at 3.35 TB/s) and do ~2.3e7 operations (~0.68
+// us at 34 TFLOP/s fp64), far below what three launches cost: the design is
 // launch-bound at b <= 16, and at b = 256 (~128 packed lines per row or
 // column) bound by the transforms' shared-memory traffic.
 
@@ -31,7 +30,8 @@ int gram(int n, int m1, int m2, int L1, int L2, int s, const void* offs,
       static_cast<const int*>(occ), static_cast<const T*>(wcell),
       static_cast<const int*>(cell), static_cast<const T*>(lam1),
       static_cast<const T*>(lam2), static_cast<T>(noise2),
-      static_cast<const T*>(v), c, static_cast<T*>(out),
+      static_cast<const T*>(v), static_cast<const T*>(v), c,
+      static_cast<T*>(out),
       static_cast<T*>(scratch0), static_cast<T*>(scratch1), cap, row_tpl,
       row_lpb, col_tpl, col_lpb, static_cast<cudaStream_t>(stream)));
 }

@@ -1,12 +1,12 @@
-// Covariance tile formulas k(dt; p) (B4's tile_matrix.cu; the value and
-// tangent sweeps take their own forms, value_sweep.cuh, tangent_sweep.cuh).
+// What every tile kernel shares: the family ids, the parameter layout and
+// the Wendland factor.  The entries themselves (k and its gradient) are in
+// value_sweep.cuh and tangent_sweep.cuh; B1-B4, B8, B9, B12 and B13 all
+// take theirs from there.
 //
-// Device-side twin of repro_torch/kernels/ref.py.  The parameter vector p is
-// the padded natural-scale block (N_PARAM_SLOTS = 8): k1 = (T0, T1, l1),
-// k2 = (T0, T1, l1, T2, l2), se / matern* = (ell,).
-//
-// The operation order follows the reference tile functions exactly, in
-// particular sin((pi * dt) / T1) / l1: the smallest admissible timescale is
+// The parameter vector p is the padded natural-scale block (N_PARAM_SLOTS
+// = 8): k1 = (T0, T1, l1), k2 = (T0, T1, l1, T2, l2), se / matern* =
+// (ell,), as in repro_torch/kernels/ref.py.  The sine argument keeps the
+// reference's order (pi * dt) / T1: the smallest admissible timescale is
 // the smallest data gap, so (pi * dt) / T1 can reach 1e8-1e9 and any
 // reordering of that argument shows above 1e-12.  sin/cos run in full
 // double precision with CUDA's own range reduction (no fast-math).
@@ -55,30 +55,6 @@ __device__ __forceinline__ T wendland(T u) {
   T tau = fabs(u);
   if (!(tau < T(1))) return T(0);
   return pow5(T(1) - tau) * (T(8) * tau * tau + T(5) * tau + T(1));
-}
-
-template <typename T, int KIND>
-__device__ __forceinline__ T tile_value(T dt, const T* p) {
-  const T pi = T(3.141592653589793);
-  if (KIND == K1) {
-    T s1 = sin(pi * dt / p[1]) / p[2];
-    return wendland(dt / p[0]) * exp(T(-2) * s1 * s1);
-  } else if (KIND == K2) {
-    T s1 = sin(pi * dt / p[1]) / p[2];
-    T s2 = sin(pi * dt / p[3]) / p[4];
-    return wendland(dt / p[0]) * exp(T(-2) * (s1 * s1 + s2 * s2));
-  } else if (KIND == SE) {
-    T r = dt / p[0];
-    return exp(T(-0.5) * r * r);
-  } else if (KIND == MATERN12) {
-    return exp(-fabs(dt) / p[0]);
-  } else if (KIND == MATERN32) {
-    T a = sqrt(T(3)) * fabs(dt) / p[0];
-    return (T(1) + a) * exp(-a);
-  } else {
-    T a = sqrt(T(5)) * fabs(dt) / p[0];
-    return (T(1) + a + a * a / T(3)) * exp(-a);
-  }
 }
 
 }  // namespace tile

@@ -167,7 +167,7 @@ __device__ __forceinline__ void value_consts(const T* p, T* q) {
   }
 }
 
-// tile_value with the divisions outside the sine argument as products.
+// k(dt) with the divisions outside the sine argument as products.
 template <typename T, int KIND>
 __device__ __forceinline__ T value_entry(T dt, const T* p, const T* q) {
   const T pi = T(3.141592653589793);

@@ -33,8 +33,8 @@ SOURCES = ("tile_matvec.cu", "tile_matvec_f32.cu", "tile_tangent.cu",
            "tile_tangent_nd.cu", "tile_tangent_nd_f32.cu", "ski_gram_2d.cu",
            "ski_tangent_2d.cu")
 HEADERS = ("tile_fns.cuh", "tile_sweep.cuh", "value_sweep.cuh",
-           "tangent_sweep.cuh", "ski_fft.cuh", "ski_fft_2d.cuh",
-           "ski_lines_2d.cuh", "ski_lines_1d.cuh")
+           "tangent_sweep.cuh", "ski_fft.cuh", "ski_lines_2d.cuh",
+           "ski_lines_1d.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -105,16 +105,13 @@ for _name in ("ski_gram_f64", "ski_bank_f64"):
     _SIGNATURES[_name] = ([_INT] * 4 + [_VOID] * 5
                           + [_DOUBLE, _VOID, _INT, _INT, _VOID, _VOID]
                           + [_INT] * 5 + [_VOID])
-# B11: (n, m1, m2, L1, L2, s, offs, occ, wcell, cell, lam1, lam2, m_dirs,
-# noise2, v, c, out, scratch0, scratch1, stream); B10 the same without
-# m_dirs and with its line plan (cap, row_tpl, row_lpb, col_tpl, col_lpb)
-# before the stream
-_SIGNATURES["ski_tangent_2d_f64"] = ([_INT] * 6 + [_VOID] * 6
-                                     + [_INT, _DOUBLE, _VOID, _INT]
-                                     + [_VOID] * 4)
-_SIGNATURES["ski_gram_2d_f64"] = ([_INT] * 6 + [_VOID] * 6
-                                  + [_DOUBLE, _VOID, _INT] + [_VOID] * 3
-                                  + [_INT] * 5 + [_VOID])
+# B10 and B11: (n, m1, m2, L1, L2, s, offs, occ, wcell, cell, lam1, lam2,
+# mid, v, c, out, scratch0, scratch1, cap, row_tpl, row_lpb, col_tpl,
+# col_lpb, stream), mid B10's noise2 or B11's m_dirs
+for _name, _mid in (("ski_gram_2d_f64", _DOUBLE),
+                    ("ski_tangent_2d_f64", _INT)):
+    _SIGNATURES[_name] = ([_INT] * 6 + [_VOID] * 6 + [_mid, _VOID, _INT]
+                          + [_VOID] * 3 + [_INT] * 5 + [_VOID])
 _SIGNATURES["ski_gram_2d_line_cap"] = [_INT]
 for _name in list(_SIGNATURES):
     if _name.endswith("_f64"):

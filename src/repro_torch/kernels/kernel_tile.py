@@ -1,10 +1,13 @@
 """Dense covariance block K(x1, x2): B4.
 
 Counterpart of ``matrix_pallas`` in ``repro/kernels/kernel_tile.py``.  The
-CUDA kernel (``csrc/tile_matrix.cu``) writes one entry per thread straight
-from the coordinates, so no (n1, n2) separation matrix is ever built.  The
-wrapper takes the plain PyTorch version only for CPU tensors; on CUDA
-tensors it launches the kernel or raises.
+CUDA kernel (``csrc/tile_matrix.cu``) writes the block straight from the
+coordinates in tiles of rows x columns, a warp's stores 32 consecutive
+entries of a row, on the value sweep's entry (an entry outside k1's or
+k2's Wendland window stored as 0 before any sin or exp), so no (n1, n2)
+separation matrix is ever built.  The wrapper takes the plain PyTorch
+version only for CPU tensors; on CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations

@@ -29,16 +29,18 @@ On a 2-D product grid (m1 x m2 cells, flat row-major) the same sandwich
 runs with the outer product of two axis spectra, lam1 (L1,) and lam2
 (L2,), each a power-of-two embedding of its axis's first column; the
 joint stencil's s1 s2 flat offsets d1 m2 + d2 travel as an explicit
-list.  B11 (``csrc/ski_tangent_2d.cu``) runs whole-plane FFT passes
-(``csrc/ski_fft_2d.cuh``).  B10 (``csrc/ski_gram_2d.cu``,
-``csrc/ski_lines_2d.cuh``) uses that the outer-product spectrum makes the
-2-D circulant a product of two axis circulants: W^T with the axis-1
-convolution of the m1 occupied rows, then the axis-0 convolution of the
-m2 columns, each line transformed in shared memory, then W: three
-launches, one compact scratch (:func:`gram_2d_plan`; an axis longer than
-the shared-memory line cap takes the global passes).
-:func:`fused_gram_matvec_nd_pruned` is that order on ``torch.fft``, for
-the tests.
+list.  B10 and B11 (``csrc/ski_gram_2d.cu``, ``csrc/ski_tangent_2d.cu``,
+both on ``csrc/ski_lines_2d.cuh``) use that the outer-product spectrum
+makes the 2-D circulant a product of two axis circulants: W^T with the
+axis-1 convolution of the m1 occupied rows, then the axis-0 convolution
+of the m2 columns, each line transformed in shared memory, then W: three
+launches, one compact scratch (:func:`gram_2d_plan`).  B11 runs W^T and
+the forward row transforms once for all its tangent directions, each
+direction's row inverse and columns by its own pair of axis spectra.  An
+axis longer than the shared-memory line cap takes the global passes (B11:
+B10's gram once per direction).  :func:`fused_gram_matvec_nd_pruned` and
+:func:`fused_tangent_matvecs_nd_pruned` are that order on ``torch.fft``,
+for the tests.
 
 Each wrapper takes its plain PyTorch version when, and only when, the
 tensors lie on the CPU; on CUDA tensors it launches its kernel or raises.
@@ -686,37 +688,14 @@ def fused_gram_matvec_nd(geom: FusedSKIGeometry2D, lams, noise2: float, v):
 
 def fused_tangent_matvecs_nd(geom: FusedSKIGeometry2D, lam_pairs, v):
     """B11: W (dK_kron/dtheta_i) W^T v for all m directions on a 2-D
-    product grid, one launch: (m, n, b).  ``lam_pairs`` = ((m, L1),
-    (m, L2)) from :func:`tangent_spectra_nd`.  No noise."""
+    product grid, one call (three launches at the cell's shape whatever m
+    is: see :func:`gram_2d_plan` with ``dirs``): (m, n, b).
+    ``lam_pairs`` = ((m, L1), (m, L2)) from :func:`tangent_spectra_nd`.
+    No noise."""
     dev = _check_2d(geom, lam_pairs, v)
     if dev.type == "cpu":
         return fused_tangent_matvecs_nd_plain(geom, lam_pairs, v)
-    m = int(lam_pairs[0].shape[0])
-    return _launch_2d("ski_tangent_2d", geom, lam_pairs, 0.0, v,
-                      v.new_empty((m,) + tuple(v.shape)), m_dirs=m)
-
-
-def _launch_2d(name, geom, lams, noise2, v, out, *, m_dirs):
-    """One launch of B11 into ``out``."""
-    if out.numel() == 0:
-        return out
-    t = geom.tensors(v.device, v.dtype)
-    c = int(v.shape[1])
-    planes = m_dirs * ((c + 1) // 2)
-    L1, L2 = geom.Ls
-    # two ping-pong buffers of (planes, L1, L2) complex values
-    scratch = torch.empty((2, planes, L1 * L2, 2), dtype=v.dtype,
-                          device=v.device)
-    _cuda.call(f"{name}_{_cuda.dtype_suffix(v.dtype)}", int(v.shape[0]),
-               geom.shape[0], geom.shape[1], L1, L2, len(geom.offs),
-               t["offs"].data_ptr(), t["occ"].data_ptr(),
-               t["wcell"].data_ptr(), t["cell"].data_ptr(),
-               lams[0].data_ptr(), lams[1].data_ptr(), int(m_dirs),
-               float(noise2), v.data_ptr(), c, out.data_ptr(),
-               scratch[0].data_ptr(), scratch[1].data_ptr(),
-               _cuda.stream_ptr(v.device))
-    _cuda.LAUNCHES[name] += 1
-    return out
+    return _launch_tangent_2d(geom, lam_pairs, v)
 
 
 # ---------------------------------------------------------------------------
@@ -735,23 +714,28 @@ LINE_SMEM_LIMIT = 232448
 
 
 class Gram2DPlan(NamedTuple):
-    """How B10 runs one call (csrc/ski_lines_2d.cuh).
+    """How B10 or B11 runs one call (csrc/ski_lines_2d.cuh).
 
     cap:     the longest line transformed in shared memory; an axis with
              L_a <= cap takes its line kernel, a longer one the global
              Stockham passes.
     rows:    (tpl, lpb) of the axis-1 line kernel (W^T + the row
-             convolutions over the m1 occupied rows).
+             convolutions over the m1 occupied rows; three buffers a line
+             where B11's directions keep the forward line).
     cols:    (tpl, lpb) of the axis-0 line kernel (the m2 columns).
     scratch: complex values of each of the two scratch buffers (the second
              0 when both axes take their line kernels).
     launches: kernel launches per call.
+    per_direction: B11 runs B10's gram once per direction (an axis beyond
+             the cap, or a row line of three buffers that does not fit a
+             block); False for B10 and for B11 on its line kernels.
     """
     cap: int
     rows: tuple
     cols: tuple
     scratch: tuple
     launches: int
+    per_direction: bool = False
 
 
 def line_smem_bytes(L: int, lines: int, itemsize: int, bufs: int = 2) -> int:
@@ -788,20 +772,32 @@ def line_kernel_plan(L: int, lines: int, itemsize: int,
 
 @functools.lru_cache(maxsize=256)
 def gram_2d_plan(shape, Ls, b: int, itemsize: int,
-                 cap: Optional[int] = None) -> Gram2DPlan:
-    """B10's plan for b columns on the (m1, m2) cells in (L1, L2) planes.
+                 cap: Optional[int] = None, dirs: int = 1) -> Gram2DPlan:
+    """The plan of B10 (``dirs`` = 1) or B11 (``dirs`` tangent directions)
+    for b columns on the (m1, m2) cells in (L1, L2) planes.
 
-    Stage 1 writes the (P, m1, ld) rows (P = ceil(b / 2) packed columns):
-    ld = m2 from the line kernel; ld = L2 from the global passes, which
-    ping-pong between two (P, m1, L2) buffers.  Stage 2 works in place from
-    its line kernel; its global passes pad the rows into (P, L1, m2) and
-    ping-pong between the two buffers.  Each buffer is sized for the
-    largest of these that the call takes."""
+    B10: stage 1 writes the (P, m1, ld) rows (P = ceil(b / 2) packed
+    columns): ld = m2 from the line kernel; ld = L2 from the global
+    passes, which ping-pong between two (P, m1, L2) buffers.  Stage 2 works
+    in place from its line kernel; its global passes pad the rows into
+    (P, L1, m2) and ping-pong between the two buffers.  Each buffer is
+    sized for the largest of these that the call takes.  B11 writes the
+    (dirs, P, m1, m2) rows and works on them in place (three launches, one
+    buffer of dirs P m1 m2 complex values) while both axes fit the cap
+    and, with several directions, a row line of three buffers fits a block
+    (L2 <= 2048 in float64, 4096 in float32); otherwise it runs B10's gram
+    once per direction on B10's plan and scratch."""
     (m1, m2), (L1, L2) = shape, Ls
     P = (int(b) + 1) // 2
+    dirs = int(dirs)
     cap = line_cap(itemsize) if cap is None else min(int(cap),
                                                     line_cap(itemsize))
     rows_shared, cols_shared = L2 <= cap, L1 <= cap
+    if (dirs > 1 and rows_shared and cols_shared
+            and line_smem_bytes(L2, 1, itemsize, 3) <= LINE_SMEM_LIMIT):
+        return Gram2DPlan(cap, line_kernel_plan(L2, m1, itemsize, 3),
+                          line_kernel_plan(L1, m2, itemsize),
+                          (dirs * P * m1 * m2, 0), 3)
     if rows_shared:
         buf = [P * m1 * m2, 0]
     else:
@@ -812,7 +808,7 @@ def gram_2d_plan(shape, Ls, b: int, itemsize: int,
                 + (1 if cols_shared else 1 + 2 * _passes(L1)) + 1)
     return Gram2DPlan(cap, line_kernel_plan(L2, m1, itemsize),
                       line_kernel_plan(L1, m2, itemsize), tuple(buf),
-                      launches)
+                      dirs * launches, dirs > 1)
 
 
 def _passes(L: int) -> int:
@@ -823,54 +819,75 @@ def _passes(L: int) -> int:
 
 
 def _launch_gram_2d(geom, lams, noise2, v, line_cap_arg=None):
-    """B10 on the card: the plan's scratch (one allocation), one C call.
-    Every CG and Lanczos iteration on a gappy field makes this call, so
-    the host work is kept to a cached plan and one allocation.
-    ``line_cap_arg`` lowers the card's line cap (the card tests put a
-    small geometry on the global-pass branch with it)."""
-    out = torch.empty_like(v)
+    """B10 on the card (:func:`_launch_2d`).  ``line_cap_arg`` lowers the
+    card's line cap (the card tests put a small geometry on the
+    global-pass branch with it)."""
+    return _launch_2d("ski_gram_2d", geom, lams, v, torch.empty_like(v),
+                      float(noise2), 1, line_cap_arg)
+
+
+def _launch_tangent_2d(geom, lam_pairs, v, line_cap_arg=None):
+    """B11 on the card (:func:`_launch_2d`), ``line_cap_arg`` as for
+    :func:`_launch_gram_2d`."""
+    m = int(lam_pairs[0].shape[0])
+    return _launch_2d("ski_tangent_2d", geom, lam_pairs, v,
+                      v.new_empty((m,) + tuple(v.shape)), m, m, line_cap_arg)
+
+
+def _launch_2d(name, geom, lams, v, out, mid, dirs, line_cap_arg):
+    """One C call ``name``_<dtype>(n, m1, m2, L1, L2, s, offs, occ, wcell,
+    cell, lam1, lam2, mid, v, c, out, scratch0, scratch1, cap, plan...,
+    stream) into ``out``, counted in LAUNCHES[name]: B10 (mid the noise)
+    or B11 (mid the directions).  Every CG and Lanczos iteration on a gappy
+    field makes such a call, so the host work is kept to a cached plan and
+    one scratch allocation."""
     if out.numel() == 0:
         return out
     t = geom.tensors(v.device, v.dtype)
     c = int(v.shape[1])
     itemsize = v.element_size()
-    plan = gram_2d_plan(geom.shape, geom.Ls, c, itemsize, line_cap_arg)
+    plan = gram_2d_plan(geom.shape, geom.Ls, c, itemsize, line_cap_arg, dirs)
     s0, s1 = plan.scratch
     scratch = torch.empty((s0 + max(s1, 1), 2), dtype=v.dtype,
                           device=v.device)
     base = scratch.data_ptr()
-    _cuda.call(f"ski_gram_2d_{_cuda.dtype_suffix(v.dtype)}",
+    _cuda.call(f"{name}_{_cuda.dtype_suffix(v.dtype)}",
                int(v.shape[0]), geom.shape[0], geom.shape[1], *geom.Ls,
                len(geom.offs), t["offs"].data_ptr(), t["occ"].data_ptr(),
                t["wcell"].data_ptr(), t["cell"].data_ptr(),
-               lams[0].data_ptr(), lams[1].data_ptr(), float(noise2),
-               v.data_ptr(), c, out.data_ptr(), base,
-               base + 2 * itemsize * s0, plan.cap, *plan.rows, *plan.cols,
-               _cuda.stream_ptr(v.device))
-    _cuda.LAUNCHES["ski_gram_2d"] += 1
+               lams[0].data_ptr(), lams[1].data_ptr(), mid, v.data_ptr(), c,
+               out.data_ptr(), base, base + 2 * itemsize * s0, plan.cap,
+               *plan.rows, *plan.cols, _cuda.stream_ptr(v.device))
+    _cuda.LAUNCHES[name] += 1
     return out
 
 
-def _grid_conv_2d_pruned(geom, lam1, lam2, u):
-    """The 2-D convolution of :func:`_grid_conv_2d_plain` in B10's order
-    (csrc/ski_lines_2d.cuh): two real columns packed in one complex column
-    (a zero half for an odd b), the axis-1 convolution of the m1 occupied
-    rows alone cropped to m2, then the axis-0 convolution of the m2
-    columns cropped to m1.  The spectrum is an outer product, so the 2-D
-    circulant is the product of the two axis circulants and the crops
-    commute with it."""
+def _grid_conv_2d_pruned(geom, lam1s, lam2s, u):
+    """The 2-D convolutions of :func:`_grid_conv_2d_plain` on u (m1 m2, b)
+    in B10's and B11's order (csrc/ski_lines_2d.cuh), direction i through
+    lam1s[i] (x) lam2s[i] (lam1s (dirs, L1), lam2s (dirs, L2)): two real
+    columns packed in one complex column (a zero half for an odd b), the
+    forward axis-1 transform of the m1 occupied rows once for every
+    direction; then per direction its lam2, the inverse cropped to m2, and
+    the axis-0 convolution of the m2 columns by its lam1 cropped to m1.
+    The spectrum is an outer product, so the 2-D circulant is the product
+    of the two axis circulants and the crops commute with it.  Returns
+    (dirs, m1 m2, b)."""
     (m1, m2), (L1, L2) = geom.shape, geom.Ls
     b = u.shape[1]
     U = u.reshape(m1, m2, b)
     if b % 2:
         U = torch.cat([U, U.new_zeros((m1, m2, 1))], dim=2)
-    Z = torch.complex(U[..., 0::2], U[..., 1::2])
-    Z = torch.fft.ifft(lam2[None, :, None] * torch.fft.fft(Z, n=L2, dim=1),
-                       dim=1, norm="forward")[:, :m2]
-    Z = torch.fft.ifft(lam1[:, None, None] * torch.fft.fft(Z, n=L1, dim=0),
-                       dim=0, norm="forward")[:m1]
-    out = torch.stack([Z.real, Z.imag], dim=-1).reshape(m1, m2, -1)[..., :b]
-    return out.reshape(m1 * m2, b)
+    F = torch.fft.fft(torch.complex(U[..., 0::2], U[..., 1::2]), n=L2, dim=1)
+    out = []
+    for lam1, lam2 in zip(lam1s, lam2s):
+        Z = torch.fft.ifft(lam2[None, :, None] * F, dim=1,
+                           norm="forward")[:, :m2]
+        Z = torch.fft.ifft(lam1[:, None, None] * torch.fft.fft(Z, n=L1, dim=0),
+                           dim=0, norm="forward")[:m1]
+        out.append(torch.stack([Z.real, Z.imag], dim=-1)
+                   .reshape(m1, m2, -1)[..., :b].reshape(m1 * m2, b))
+    return torch.stack(out) if out else u.new_zeros((0,) + tuple(u.shape))
 
 
 def fused_gram_matvec_nd_pruned(geom: FusedSKIGeometry2D, lams,
@@ -881,5 +898,18 @@ def fused_gram_matvec_nd_pruned(geom: FusedSKIGeometry2D, lams,
     :func:`fused_gram_matvec_nd_plain`."""
     t = geom.tensors(v.device, v.dtype)
     u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
-    ku = _grid_conv_2d_pruned(geom, lams[0], lams[1], u)
+    ku = _grid_conv_2d_pruned(geom, lams[0][None], lams[1][None], u)[0]
     return interp_gather(t["idx"], t["w"], ku) + noise2 * v
+
+
+def fused_tangent_matvecs_nd_pruned(geom: FusedSKIGeometry2D, lam_pairs, v):
+    """B11's function in B11's order: W^T and the forward row transforms
+    once, then each direction's row inverse, columns and W
+    (:func:`_grid_conv_2d_pruned`): (m, n, b).  The CPU twin of the
+    kernel's arithmetic, used by the tests; the card holds B11 against
+    :func:`fused_tangent_matvecs_nd_plain`."""
+    t = geom.tensors(v.device, v.dtype)
+    u = interp_scatter(t["idx"], t["w"], geom.m_grid, v)
+    ku = _grid_conv_2d_pruned(geom, lam_pairs[0], lam_pairs[1], u)
+    return torch.stack([interp_gather(t["idx"], t["w"], k) for k in ku]) \
+        if ku.shape[0] else v.new_zeros((0,) + tuple(v.shape))

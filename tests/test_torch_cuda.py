@@ -74,6 +74,51 @@ def test_cuda_kernels_match_plain(cuda_device, kind, case, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n2", [512, 511, 1, 3])
+@pytest.mark.parametrize("kind", sorted(k for k, case in THETAS
+                                        if case == "mid"))
+def test_cuda_tile_matrix_matches_plain(cuda_device, kind, n2, dtype, tol):
+    """B4 against its plain version in all six families on 333 rows (no
+    multiple of the 8-row tile) and n2 = 512, 511, 1, 3 columns (ragged
+    against the 128-column tile, odd rows unaligned), one launch each.  x2
+    lies in [0, 1000] h, so the rows beyond ~1400 h lie wholly outside
+    k1's and k2's window (T0 = 300, 400 h): exactly 0 in both versions.
+    Row 5 holds a nan (a nan row in both); row 70 lies beyond
+    +-VALUE_BIG: the kernel zeroes a k1 or k2 entry outside the window
+    before its sine, where the plain version's overflowed sine gives a
+    nan; the other families give the plain version's row."""
+    rng = np.random.default_rng(n2)
+    x1 = np.sort(rng.uniform(0.0, 8760.0, 333))
+    x2 = rng.uniform(0.0, 1000.0, n2)
+    x1[5] = np.nan
+    x1[70] = 1.25 * tkm.VALUE_BIG[dtype]
+    theta = torch.tensor(THETAS[(kind, "mid")], dtype=torch.float64)
+    p = tops.natural_params(kind, theta).to(cuda_device, dtype)
+    a, b = (torch.tensor(z, device=cuda_device, dtype=dtype)
+            for z in (x1, x2))
+    _cuda.reset_launches()
+    got = tkt.tile_matrix(kind, p, a, b)
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == {"tile_matrix": 1}
+    want = tkt.tile_matrix_plain(kind, p, a, b)
+    assert got.shape == want.shape == (333, n2)
+    keep = torch.ones(333, dtype=torch.bool, device=cuda_device)
+    keep[[5, 70]] = False
+    assert _relerr(got[keep], want[keep]) < tol
+    assert torch.isnan(got[5]).all() and torch.isnan(want[5]).all()
+    if kind in ("k1", "k2"):
+        assert not bool(got[70].any()) and torch.isnan(want[70]).all()
+        outside = keep & (a > 1400.0)
+        assert bool(outside.any())
+        assert not bool(got[outside].any()) and not bool(want[outside].any())
+    else:
+        assert torch.equal(got[70].isnan(), want[70].isnan())
+        assert torch.equal(got[70].nan_to_num(), want[70].nan_to_num())
+
+
+@pytest.mark.cuda
 def test_cuda_matvec_splits_wide_right_hand_sides(cuda_device):
     """b above one launch's column limit runs as several launches."""
     rng = np.random.default_rng(8)
@@ -471,43 +516,59 @@ def test_cuda_product_tile_kernels_match_plain(cuda_device, kind, dtype,
     assert _relerr(tan, want) < tol
 
 
-def _field_geometry(shape=(40, 24), drop=0.15, seed=10):
+def _field_geometry(shape=(40, 24), drop=0.15, seed=10, kind="se*matern32"):
     """A gappy 2-D field's product-SKI operator (W a selection matrix)."""
     axes = [h * np.arange(m) for m, h in zip(shape, (0.5, 0.25))]
     x = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, 2)
     x = x[np.random.default_rng(seed).uniform(size=x.shape[0]) >= drop]
-    return topers.select_operator("se*matern32", torch.tensor(x), 0.05,
-                                  1e-8)
+    return topers.select_operator(kind, torch.tensor(x), 0.05, 1e-8)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
-@pytest.mark.parametrize("b", [1, 8, 9, 70])
-def test_cuda_ski_2d_kernels_match_plain(cuda_device, dtype, tol, b):
-    """B10 and B11 against their plain (torch.fft) versions."""
-    op = _field_geometry()
+@pytest.mark.parametrize("cap", [None, 64, 32])
+@pytest.mark.parametrize("b", [1, 2, 8, 9, 17, 70, 256])
+@pytest.mark.parametrize("kind", ["se*matern32", "k2*se"])
+def test_cuda_ski_2d_kernels_match_plain(cuda_device, kind, b, cap, dtype,
+                                         tol):
+    """B10 and B11 against their plain (torch.fft) versions, B11 at m = 2
+    ("se*matern32") and m = 6 ("k2*se"), odd and even b: on the line
+    kernels (cap None: L = 128 x 64 both fit; B11's rows with three
+    buffers) and, with the line cap lowered, B11 as B10's gram once per
+    direction on the global passes of axis 0 (cap 64) and of both axes
+    (cap 32); one call, counted once, each."""
+    op = _field_geometry(kind=kind)
     assert op.name == "product_ski" and op.fused
     geom = op.fused_geom
-    theta = torch.tensor(ND_THETAS["se*matern32"], dtype=torch.float64)
+    assert geom.Ls == (128, 64)
+    theta = torch.tensor(ND_THETAS[kind], dtype=torch.float64)
     lams = tsf.spectrum_nd(op._kron.first_columns(theta), geom)
     pairs = tsf.tangent_spectra_nd(op._kron, theta, geom, torch.float64)
+    m = 2 if kind == "se*matern32" else 6
     rng = np.random.default_rng(b)
     v = torch.tensor(rng.standard_normal((geom.n, b)), device=cuda_device,
                      dtype=dtype)
     lams = tuple(lam.to(cuda_device, dtype) for lam in lams)
     pairs = tuple(pr.to(cuda_device, dtype) for pr in pairs)
     _cuda.reset_launches()
-    got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
-    tan = tsf.fused_tangent_matvecs_nd(geom, pairs, v)
+    if cap is None:
+        got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
+        tan = tsf.fused_tangent_matvecs_nd(geom, pairs, v)
+    else:
+        got = tsf._launch_gram_2d(geom, lams, 1e-3, v, cap)
+        tan = tsf._launch_tangent_2d(geom, pairs, v, cap)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["ski_gram_2d"] == 1
-    assert _cuda.LAUNCHES["ski_tangent_2d"] == 1
-    assert got.shape == (geom.n, b) and tan.shape == (2, geom.n, b)
+    assert dict(_cuda.LAUNCHES) == {"ski_gram_2d": 1, "ski_tangent_2d": 1}
+    plan = tsf.gram_2d_plan(geom.shape, geom.Ls, b, v.element_size(), cap,
+                            m)
+    assert plan.per_direction == (cap is not None)
+    assert got.shape == (geom.n, b) and tan.shape == (m, geom.n, b)
     assert _relerr(got, tsf.fused_gram_matvec_nd_plain(geom, lams, 1e-3,
                                                        v)) < tol
-    assert _relerr(tan, tsf.fused_tangent_matvecs_nd_plain(geom, pairs,
-                                                           v)) < tol
+    want = tsf.fused_tangent_matvecs_nd_plain(geom, pairs, v)
+    for i in range(m):
+        assert _relerr(tan[i], want[i]) < tol
 
 
 @pytest.mark.cuda
@@ -544,7 +605,8 @@ def test_cuda_ski_2d_gram_line_branches_match_plain(cuda_device, dtype, tol,
 def test_cuda_ski_2d_gram_beyond_the_line_cap_matches_plain(cuda_device):
     """B10 on a field whose time axis (L1 = 8192) is longer than the
     float64 line cap (4096): axis 0 on the global passes, axis 1 on its
-    line kernel, without lowering the cap."""
+    line kernel, without lowering the cap; B11 there as B10's gram once
+    per direction."""
     op = _field_geometry((2100, 3))
     geom = op.fused_geom
     assert op.fused and geom.Ls[0] > tsf.line_cap(8) >= geom.Ls[1]
@@ -553,12 +615,21 @@ def test_cuda_ski_2d_gram_beyond_the_line_cap_matches_plain(cuda_device):
         op._kron.first_columns(theta), geom))
     assert _cuda.KERNELS.get("ski_gram_2d_line_cap")(8) == tsf.line_cap(8)
     assert _cuda.KERNELS.get("ski_gram_2d_line_cap")(4) == tsf.line_cap(4)
+    pairs = tuple(pr.to(cuda_device) for pr in tsf.tangent_spectra_nd(
+        op._kron, theta, geom, torch.float64))
+    assert tsf.gram_2d_plan(geom.shape, geom.Ls, 9, 8, None,
+                            2).per_direction
     for b in (1, 9):
         v = torch.tensor(np.random.default_rng(b).standard_normal(
             (geom.n, b)), device=cuda_device)
         got = tsf.fused_gram_matvec_nd(geom, lams, 1e-3, v)
         want = tsf.fused_gram_matvec_nd_plain(geom, lams, 1e-3, v)
         assert _relerr(got, want) < 1e-12
+        # B11: B10's gram once per direction, no noise
+        tan = tsf.fused_tangent_matvecs_nd(geom, pairs, v)
+        want = tsf.fused_tangent_matvecs_nd_plain(geom, pairs, v)
+        for i in range(2):
+            assert _relerr(tan[i], want[i]) < 1e-12
 
 
 FAMILY_THETAS = {"k1": [np.log(3.0), np.log(1.1), 0.1],
