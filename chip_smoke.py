@@ -186,7 +186,33 @@ started together) and then:
      preconditioners on fixed vectors to 1e-12, the objective with every
      CG solve cut at PSKI_CUT_ITERS, and the stalled solves' gap
      printed); and the stochastic objective (backend pinned, the same
-     probes and epoch permutations) at n = 1024, 1-D and (n, 2).
+     probes and epoch permutations) at n = 1024, 1-D and (n, 2);
+  9. dense phase (the paper's own regime, n <= 2048, where
+     backend="auto" binds the dense backend: one Cholesky per likelihood
+     evaluation on torch.linalg, no hand kernel), on the two records of
+     the paper's examples, built by the port's data modules from --seed:
+       - quickstart: synthetic(key 42 + seed, 100, "k2") (sigma_n 0.1),
+         compare(["k1", "k2"]) at the example's budget (10 restarts, 80
+         steps, 256 scan points per hyperparameter), then predict at 7
+         points and sample 3 joint draws at the winner's peak;
+       - tide: woods_hole_like(key seed, months=6) (n = 1968, the largest
+         record under the cutoff, sigma_n 0.01), compare(["k1", "k2"]) at
+         the budget of benchmarks/tidal.analyse (12 restarts, 100 steps,
+         DENSE_TIDAL_SCAN scan points, single-mode evidence), then
+         predict at 512 points at the k2 peak;
+     each prints its stage times, the likelihood evaluations, T1 and T2
+     with their error bars, ln P_max, ln Z and ln B, the hand-kernel
+     launches (none) and the peak allocation; and fails unless ln P_max,
+     ln Z and ln B are finite, 0 <= var <= sigma_f^2 (1 + sigma_n^2), at
+     each tide peak the jvp gradient agrees with five-point central
+     differences of the dense value to 1e-6 and the analytic Hessian
+     (eq. 2.19) is symmetric and agrees with five-point central
+     differences of the gradient to 1e-5 (dense_derivative_checks:
+     steps of 1/200 of each error bar; gradient entries relative to the
+     larger of |g_i| and sqrt|H_ii|, the gradient one error bar away;
+     Hessian entries relative to sqrt|H_ii H_jj|), and on the 1-month
+     record (n = 328) at the tide k2 peak ln P_max, the gradient and the
+     Hessian on the card agree with the CPU to 1e-10 relative.
 
 After the build, five lines give the registers, stack frame and spills
 from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
@@ -198,9 +224,10 @@ axis and width: ptxas_product_tangent), of B10's line kernels
 (ptxas_ski_lines) and of the line kernels that B5, B6 and B7 share
 (ptxas_ski_lines_1d).
 
-Phase 1 runs alone.  Phases 2-8 then run in four worker processes side by
+Phase 1 runs alone.  Phases 2-9 then run in four worker processes side by
 side on the card (WORKERS: the SKI phase; the N-D phase; check 4 and the
-small-input checks; the irregular, stochastic and distributed phases),
+small-input checks; the irregular, stochastic, distributed and dense
+phases),
 each worker its phases in turn with a share of the host's cores, since
 their CG loops are host-bound; the script waits for all of them (the
 first failure stops the others) and prints each worker's output in that
@@ -274,7 +301,7 @@ check 5.  ``--stochastic`` builds the kernels and runs only the kernel
 cases of B12/B13 and the stochastic shapes of B2 and B9, check 6 and the
 stochastic small-input checks.
 ``--distributed`` builds the kernels and runs only the cases of B3 and
-check 7.
+check 7.  ``--dense`` runs only phase 9 (it builds no kernel).
 
 ``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
@@ -309,6 +336,7 @@ from repro_torch import gp  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import iterative as it  # noqa: E402
+from repro_torch.core import hyperlik  # noqa: E402
 from repro_torch.core import laplace  # noqa: E402
 from repro_torch.core import predict  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
@@ -317,6 +345,9 @@ from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import kernel_matvec as km  # noqa: E402
 from repro_torch.kernels import kernel_tile as kt  # noqa: E402
 from repro_torch.core.reparam import FlatBox, from_box, to_box  # noqa: E402
+from repro_torch.data.synthetic import synthetic  # noqa: E402
+from repro_torch.data.tidal import (CONSTITUENTS, LUNAR_MONTH_H,  # noqa: E402
+                                     woods_hole_like)
 from repro_torch.gp import batch  # noqa: E402
 from repro_torch.kernels import operators as opers  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -474,7 +505,6 @@ ND_SHORT_ITERS = 5
 ND_SEQ_CG_MAX_ITER = 2000
 
 # the SKI cell: the woods_hole_like recipe on two years of the 2 h cadence
-LUNAR_MONTH_H = 27.321661 * 24.0
 CADENCE_H = 2.0
 TIDAL_MONTHS = 24
 DROP = 0.1
@@ -485,9 +515,6 @@ TIDAL_SIGMA_N = 0.01
 # matvecs that differ by rounding alone it ranged from -59165 to +22428,
 # and ln Z was nan for three of them (PERF.md §6)
 SKI_CG_MAX_ITER = 1200
-CONSTITUENTS = (("M2", 12.4206012, 1.00), ("S2", 12.0000000, 0.22),
-                ("N2", 12.6583475, 0.24), ("K1", 23.9344721, 0.14),
-                ("O1", 25.8193417, 0.11))
 # the sequential-vs-bank check: NCG steps, scan points (the sequential
 # path's; the bank starts from uniform draws) and the model's noise, chosen
 # on a 6-month record.  At the record's own sigma_n = 0.01 it took 580 s
@@ -513,6 +540,22 @@ SKI_THETA = {"k1": [math.log(300.0), math.log(12.42), 0.0],
 TRUTH = [math.log(200.0), math.log(12.42), -0.19, math.log(24.0), -0.1]
 # points the kernel phase runs at
 THETA = {"k1": TRUTH[:3], "k2": TRUTH}
+
+# the dense phase (the paper's regime, n <= dense_cutoff): the quickstart
+# example's record and budget, and the six-month tide record at
+# benchmarks/tidal.analyse's budget
+DENSE_QUICK_N = 100
+DENSE_QUICK_BUDGET = dict(n_starts=10, max_iters=80)   # scan: 256 m
+DENSE_QUICK_N_STAR = 7
+DENSE_DRAWS = 3
+DENSE_TIDAL_MONTHS = 6
+DENSE_TIDAL_SCAN = 2048
+DENSE_TIDAL_BUDGET = dict(n_starts=12, max_iters=100, multimodal=False)
+DENSE_SMALL_MONTHS = 1
+DENSE_FD_STEP = 0.005      # five-point stencils, in error bars
+DENSE_GRAD_TOL = 1e-6
+DENSE_HESS_TOL = 1e-5
+DENSE_CPU_TOL = 1e-10
 
 
 def emit(obj) -> None:
@@ -2519,6 +2562,198 @@ def check_at_peak(fitted, post, xstar_np, seed, label="at_peak",
     return out
 
 
+def timescales(rep):
+    """T1 (and for k2 T2, ordered) in hours with their error bars
+    (dT = T dphi) from a compare report."""
+    th = rep.theta_hat.cpu().numpy()
+    err = rep.errors.cpu().numpy()
+    if rep.name == "k1":
+        return {"T1_h": float(np.exp(th[1])),
+                "T1_err": float(np.exp(th[1]) * err[1])}
+    (t1, e1), (t2, e2) = sorted((float(np.exp(th[i])),
+                                 float(np.exp(th[i]) * err[i]))
+                                for i in (1, 3))
+    return {"T1_h": t1, "T1_err": e1, "T2_h": t2, "T2_err": e2}
+
+
+def five_point(fn, theta, i, h):
+    """d fn / d theta_i by the five-point central difference."""
+    e = torch.zeros_like(theta)
+    e[i] = h
+    return (fn(theta - 2 * e) - 8 * fn(theta - e) + 8 * fn(theta + e)
+            - fn(theta + 2 * e)) / (12 * h)
+
+
+def dense_derivative_checks(cov, theta, x, y, sigma_n, jitter=1e-10):
+    """At theta: the jvp gradient (eq. 2.17) against five-point central
+    differences of the dense ln P_max, and the analytic Hessian (eq. 2.19)
+    against its own transpose and five-point central differences of the
+    gradient.  The step along theta_i is DENSE_FD_STEP error bars,
+    1 / sqrt|H_ii|.  Gradient entries are relative to the larger of |g_i|
+    and sqrt|H_ii| (the gradient one error bar from a peak), Hessian
+    entries to sqrt|H_ii H_jj|."""
+    def value(t):
+        return hyperlik.profiled_loglik(cov, t, x, y, sigma_n, jitter)[0]
+
+    def grad(t):
+        _, cache = hyperlik.profiled_loglik(cov, t, x, y, sigma_n, jitter)
+        return hyperlik.profiled_grad(cov, t, x, y, sigma_n, cache, jitter)
+
+    _, cache = hyperlik.profiled_loglik(cov, theta, x, y, sigma_n, jitter)
+    g = hyperlik.profiled_grad(cov, theta, x, y, sigma_n, cache, jitter)
+    H = hyperlik.profiled_hessian(cov, theta, x, y, sigma_n, cache, jitter)
+    scale = torch.sqrt(torch.abs(torch.diagonal(H)))
+    m = theta.shape[0]
+    g_fd = torch.stack([five_point(value, theta, i,
+                                   DENSE_FD_STEP / float(scale[i]))
+                        for i in range(m)])
+    H_fd = torch.stack([five_point(grad, theta, j,
+                                   DENSE_FD_STEP / float(scale[j]))
+                        for j in range(m)], dim=1)
+    grad_rel = float(torch.max(torch.abs(g_fd - g)
+                               / torch.maximum(torch.abs(g), scale)))
+    hess_rel = float(torch.max(torch.abs(H_fd - H)
+                               / (scale[:, None] * scale[None, :])))
+    sym = float(torch.max(torch.abs(H - H.T)) / torch.max(torch.abs(H)))
+    return dict(grad_rel_err=grad_rel, hess_rel_err=hess_rel,
+                hess_asym=sym, grad=g.tolist(),
+                hess_diag=torch.diagonal(H).tolist())
+
+
+def dense_card_vs_cpu(theta, seed, dev):
+    """ln P_max, its gradient and its Hessian for k2 on the 1-month tide
+    record (n = 328), the same inputs on the card and on the CPU:
+    relative errors (the gradient's and Hessian's over their max-abs)."""
+    ds = woods_hole_like(rnd.key(seed), months=DENSE_SMALL_MONTHS,
+                         device="cpu")
+    out = {}
+    for where in ("cpu", dev):
+        x, y = ds.x.to(where), ds.y.to(where)
+        th = torch.as_tensor(theta, dtype=torch.float64, device=where)
+        cov = gp.GPSpec("k2").cov
+        val, cache = hyperlik.profiled_loglik(cov, th, x, y, ds.sigma_n)
+        out[str(where)] = [
+            t.cpu() for t in (val, hyperlik.profiled_grad(
+                cov, th, x, y, ds.sigma_n, cache), hyperlik.profiled_hessian(
+                    cov, th, x, y, ds.sigma_n, cache))]
+    (v0, g0, h0), (v1, g1, h1) = out["cpu"], out[str(dev)]
+    return dict(
+        n=int(ds.x.shape[0]),
+        log_p_max_rel_err=float(abs(v1 - v0) / abs(v0)),
+        grad_rel_err=float(torch.max(torch.abs(g1 - g0))
+                           / torch.max(torch.abs(g0))),
+        hess_rel_err=float(torch.max(torch.abs(h1 - h0))
+                           / torch.max(torch.abs(h0))))
+
+
+def dense_record(stage, label, ds, policy, xstar, dev, draws=0):
+    """compare(["k1", "k2"]) on one record through backend="auto" (it
+    must bind the dense backend), then predict (and sample) at the
+    peak of the model with the larger ln Z."""
+    specs = gp.spec_bank(["k1", "k2"], noise=gp.NoiseModel(ds.sigma_n),
+                         solver=policy)
+    bound = gp.GP.bind(specs[1], ds.x, ds.y)
+    if (bound.backend, bound.operator_name) != ("dense", "dense"):
+        raise AssertionError(f"{label}: bound {bound!r}, expected the "
+                             f"dense backend")
+    reports = stage(f"{label}_compare", lambda: gp.compare(
+        specs, ds.x, ds.y, key=rnd.key(0)))
+    lnb = reports[1].log_z_laplace - reports[0].log_z_laplace
+    best = max(reports, key=lambda r: r.log_z_laplace)
+    sess = gp.GP.bind(gp.as_spec(best.name, noise=gp.NoiseModel(ds.sigma_n),
+                                 solver=policy), ds.x, ds.y)
+    post = stage(f"{label}_predict", lambda: sess.predict(
+        xstar, theta=best.theta_hat))
+    out = dict(n=int(ds.x.shape[0]), sigma_n=ds.sigma_n, ln_b=lnb,
+               winner=best.name, models={})
+    for r in reports:
+        out["models"][r.name] = dict(
+            log_p_max=r.log_p_max, log_z=r.log_z_laplace,
+            n_evals=r.n_evals_train, n_modes=r.n_modes,
+            theta_hat=r.theta_hat.tolist(), errors=r.errors.tolist(),
+            sigma_f_hat=r.sigma_f_hat, **timescales(r))
+    check_finite([(f"{label} {r.name} ln P_max", r.log_p_max)
+                  for r in reports]
+                 + [(f"{label} {r.name} ln Z", r.log_z_laplace)
+                    for r in reports] + [(f"{label} ln B", lnb)])
+    check_posterior(post, best.sigma_f_hat ** 2, ds.sigma_n, out,
+                    n_star=int(xstar.shape[0]))
+    out.update(var_min=float(post.var.min()), var_max=float(post.var.max()))
+    if draws:
+        s = stage(f"{label}_sample", lambda: sess.sample(
+            rnd.key(5), xstar, n_draws=draws, theta=best.theta_hat))
+        if s.shape != (draws, xstar.shape[0]) or not bool(
+                torch.isfinite(s).all()):
+            raise AssertionError(f"{label}: bad joint draws {s.shape}")
+        out["draws_shape"] = list(s.shape)
+    return reports, out
+
+
+def dense_phase(seed, dev):
+    """The dense backend on the paper's two example records (phase 9):
+    compare, predict and sample through the front door, the jvp gradient
+    and analytic Hessian against central differences at the tide peaks,
+    and the card against the CPU at n = 328."""
+    stage = Stages("dense")
+    _cuda.reset_launches()
+    _sync.reset()
+    torch.cuda.reset_peak_memory_stats()
+    quick = synthetic(rnd.key(42 + seed), DENSE_QUICK_N, "k2")
+    _, q_out = dense_record(
+        stage, "quickstart", quick,
+        gp.SolverPolicy(backend="auto", **DENSE_QUICK_BUDGET),
+        torch.linspace(float(quick.x[0]), float(quick.x[-1]),
+                       DENSE_QUICK_N_STAR, dtype=torch.float64, device=dev),
+        dev, draws=DENSE_DRAWS)
+    tide = woods_hole_like(rnd.key(seed), months=DENSE_TIDAL_MONTHS)
+    xstar = torch.sort(rnd.uniform(rnd.key(seed + 1), (N_STAR,),
+                                   float(tide.x[0]), float(tide.x[-1]),
+                                   device=dev)).values
+    reports, t_out = dense_record(
+        stage, "tide", tide,
+        gp.SolverPolicy(backend="auto", scan_points=DENSE_TIDAL_SCAN,
+                        **DENSE_TIDAL_BUDGET), xstar, dev)
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    syncs = dict(_sync.COUNT)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    checks = {}
+    t0 = time.perf_counter()
+    for r in reports:
+        checks[r.name] = dense_derivative_checks(
+            gp.GPSpec(r.name).cov, r.theta_hat, tide.x, tide.y,
+            tide.sigma_n)
+    checks["card_vs_cpu"] = dense_card_vs_cpu(reports[1].theta_hat.cpu(),
+                                              seed, dev)
+    torch.cuda.synchronize()
+    checks_s = time.perf_counter() - t0
+    summary = dict(seed=seed, stage_s=stage.s, checks_s=checks_s,
+                   quickstart=q_out, tide=t_out, checks=checks,
+                   hand_kernel_launches=launches, host_syncs=sum(
+                       syncs.values()), host_syncs_by_loop=syncs,
+                   peak_allocated_gb=peak_gb,
+                   hessian_eigenvalues=stage.hessians)
+    emit({"dense": summary})
+    if launches:
+        raise AssertionError(f"the dense path launched hand kernels: "
+                             f"{launches}")
+    for name in ("k1", "k2"):
+        c = checks[name]
+        if not c["grad_rel_err"] <= DENSE_GRAD_TOL:
+            raise AssertionError(f"dense {name}: the jvp gradient and "
+                                 f"central differences disagree: {c}")
+        if not (c["hess_asym"] <= 1e-12
+                and c["hess_rel_err"] <= DENSE_HESS_TOL):
+            raise AssertionError(f"dense {name}: the analytic Hessian is "
+                                 f"not symmetric or disagrees with central "
+                                 f"differences of the gradient: {c}")
+    c = checks["card_vs_cpu"]
+    if not max(c["log_p_max_rel_err"], c["grad_rel_err"],
+               c["hess_rel_err"]) <= DENSE_CPU_TOL:
+        raise AssertionError(f"dense: the card and the CPU disagree at "
+                             f"n = {c['n']}: {c}")
+    return summary
+
+
 def card_vs_cpu(spec, x, y, theta, sigma_n, dev, backend="iterative"):
     """ln P_max and gradient at theta on the card and on the CPU path,
     with the same probes; returns (relative errors, operator name)."""
@@ -2709,6 +2944,7 @@ PHASES = {
     "distributed": lambda a, dev: distributed_phase(a.seed, dev),
     "sequential_vs_bank": lambda a, dev: sequential_vs_bank(a.seed),
     "small_input": lambda a, dev: small_input_check(dev),
+    "dense": lambda a, dev: dense_phase(a.seed, dev),
 }
 # the worker processes that run those phases side by side on the one card,
 # each its phases in turn.  Their CG loops are host-bound (PERF.md §5): run
@@ -2717,7 +2953,7 @@ PHASES = {
 # host's cores; the kernel phase, which times kernels, runs alone before
 # them.  Grouped by their one-after-another times (PERF.md §5).
 WORKERS = (("ski",), ("nd",), ("sequential_vs_bank", "small_input"),
-           ("irregular", "stochastic", "distributed"))
+           ("irregular", "stochastic", "distributed", "dense"))
 
 
 def run_worker(args, dev) -> int:
@@ -2804,6 +3040,8 @@ def main(argv=None) -> int:
     ap.add_argument("--distributed", action="store_true",
                     help="run only the kernel cases of B3 and the "
                          "distributed phase with its checks")
+    ap.add_argument("--dense", action="store_true",
+                    help="run only the dense phase (no kernel is built)")
     ap.add_argument("--worker", default=None, metavar="PHASE[,PHASE...]",
                     help="(used by the full run) run only these phases of "
                          f"{sorted(PHASES)} and write their results to "
@@ -2822,6 +3060,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(smi, flush=True)
+    if args.dense:
+        dense = dense_phase(args.seed, dev)
+        if args.json:
+            path = pathlib.Path(args.json)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(dict(device=smi, dense=dense),
+                                       indent=1))
+        emit({"script_s": time.perf_counter() - t_start})
+        return 0
 
     build_s = _cuda.build()
     emit({"build_s": build_s, "sources": list(_cuda.SOURCES)})
@@ -2913,9 +3160,9 @@ def main(argv=None) -> int:
         res = run_workers(args, pathlib.Path(tmp))
     phase_s = dict(kernel=kernel_s, **res["phase_s"],
                    workers=time.perf_counter() - t0)
-    summary, ski, nd, st, dist_out, seq_vs_bank = (
+    summary, ski, nd, st, dist_out, seq_vs_bank, dense = (
         res[k] for k in ("irregular", "ski", "nd", "stochastic",
-                         "distributed", "sequential_vs_bank"))
+                         "distributed", "sequential_vs_bank", "dense"))
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
                 **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS},
@@ -2946,7 +3193,7 @@ def main(argv=None) -> int:
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
             workflow=summary, ski_workflow=ski, nd=nd, stochastic=st,
             distributed=dist_out, phase_s=phase_s,
-            sequential_vs_bank=seq_vs_bank, kernels=kernels,
+            sequential_vs_bank=seq_vs_bank, dense=dense, kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"script_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

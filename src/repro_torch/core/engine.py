@@ -1,16 +1,25 @@
-"""The matrix-free GP solver engine.
+"""The GP solver engine: the dense and the matrix-free backends.
 
-Counterpart of ``repro/core/engine.py``: :class:`IterativeSolver` serves
-every quantity of the paper's workflow — solves, ln det K, sigma_f_hat^2
-(eq. 2.15) and the stacked gradient terms of eq. (2.17) — from batched CG,
-SLQ (plain or preconditioned) and Hutchinson probes over the bound linear
-operator.  On the tile operator every matrix access is a B1 or B2 launch;
-on a fused SKI operator (a gappy record) a B5 or B6 launch; on a fused
-product-SKI operator (a gappy 2-D field) a B10 or B11 launch; on
-scattered (n, d) data a B8 or B9 launch; K is never stored.  The
-stochastic backend (:mod:`.stochastic`) serves the same quantities from
-mini-batch row slabs (B12, B13).  Backends and options that the port
-does not run yet raise and name the slice that brings them.
+Counterpart of ``repro/core/engine.py``.  Every quantity of the paper's
+workflow (solves, ln det K, sigma_f_hat^2 of eq. 2.15 and the stacked
+gradient terms of eq. 2.17) comes from a solver bound to one evaluation
+point, each with the same ``n``, ``solve``, ``logdet``, ``quad``,
+``sigma2_hat`` and ``grad_terms``:
+
+  * :class:`DenseCholeskySolver`, the paper's O(n^3) path: one Cholesky
+    (``hyperlik.FactorCache``, ``torch.linalg``) from which everything
+    else is O(n^2);
+  * :class:`IterativeSolver`, batched CG, SLQ (plain or preconditioned)
+    and Hutchinson probes over the bound linear operator.  On the tile
+    operator every matrix access is a B1 or B2 launch; on a fused SKI
+    operator (a gappy record) a B5 or B6 launch; on a fused product-SKI
+    operator (a gappy 2-D field) a B10 or B11 launch; on scattered (n, d)
+    data a B8 or B9 launch; K is never stored;
+  * the stochastic backend (:mod:`.stochastic`), from mini-batch row
+    slabs (B12, B13).
+
+Options that the port does not run yet raise and name the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -20,13 +29,13 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
-from .. import _pending
 from .. import random as rnd
+from . import hyperlik as hl
 from . import iterative as it
 from . import stochastic as _stochastic
 from ..kernels import operators as kopers
 from ..kernels import ops as kops
-from .covariances import Covariance
+from .covariances import Covariance, build_K
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -56,6 +65,45 @@ class SolverOpts(NamedTuple):
     mem_budget_mb: int = 1024
     momentum: float = 0.0
     fused_tile_mb: int = 0
+
+
+class DenseCholeskySolver:
+    """The paper's path: one Cholesky, everything else derived from it
+    (:mod:`.hyperlik`)."""
+
+    backend = "dense"
+
+    def __init__(self, cov: Covariance, theta, x, y, sigma_n: float,
+                 jitter: float = 1e-10):
+        self.cov = cov
+        self.theta = theta
+        self.x = x
+        self.y = y
+        self.sigma_n = sigma_n
+        self.jitter = jitter
+        self.n = int(y.shape[0])
+        self.cache = hl.factorize(build_K(cov, theta, x, sigma_n, jitter), y)
+
+    def solve(self, rhs):
+        return hl.cho_solve(self.cache.L, rhs)
+
+    def logdet(self):
+        return self.cache.logdet
+
+    def quad(self, y):
+        return y @ self.solve(y)
+
+    def sigma2_hat(self):
+        return self.cache.sigma2_hat
+
+    def grad_terms(self):
+        self.cache = hl.with_inverse(self.cache)
+        dKs = hl._dK_stacked(hl._kbuilder(self.cov, self.x, self.sigma_n,
+                                          self.jitter), self.theta)
+        a = self.cache.alpha
+        quad = torch.einsum("i,mij,j->m", a, dKs, a)
+        tr = torch.einsum("ij,mij->m", self.cache.Kinv, dKs)
+        return quad, tr
 
 
 class IterativeSolver:
@@ -186,32 +234,28 @@ def select_fused(op) -> bool:
 
 
 def resolve_kind(cov: Covariance) -> str:
-    """Covariance-tile registry key for the iterative backend ("a*b"
-    composite names when every factor has a tile)."""
+    """Covariance-tile registry key for the iterative backend; a composite
+    "a*b" name needs a tile for every factor.  A kind without one raises
+    the JAX package's ``ValueError`` (such kinds run on the dense
+    backend)."""
     name = cov.name if isinstance(cov, Covariance) else str(cov)
-    if "*" in name:
-        try:
-            kops.split_kind(name)
-        except ValueError:
-            raise ValueError(
-                f"composite covariance {name!r} has a factor with no "
-                f"registered tile, so the iterative backend cannot "
-                f"evaluate it matrix-free; registered kinds: "
-                f"{sorted(kops._FLAT_TO_NATURAL)}") from None
-        return name
-    if name not in kops._FLAT_TO_NATURAL:
+    parts = name.split("*") if "*" in name else [name]
+    if any(p not in kops._FLAT_TO_NATURAL for p in parts):
         raise ValueError(
             f"covariance {name!r} has no registered tile, so the iterative "
             f"backend cannot evaluate it matrix-free; registered kinds: "
-            f"{sorted(kops._FLAT_TO_NATURAL)}")
+            f"{sorted(kops._FLAT_TO_NATURAL)} (join with '*' for separable "
+            f"multi-axis products).  Use backend='dense' for unregistered "
+            f"covariances.")
     return name
 
 
 def make_solver(backend: str, cov: Covariance, theta, x, y, sigma_n: float,
                 key=None, jitter: Optional[float] = None,
                 opts: SolverOpts = SolverOpts(), op=None, probes=None):
-    """The solver for one evaluation point (the iterative and stochastic
-    backends; ``probes`` as each solver's own argument)."""
+    """The solver for one evaluation point.  ``jitter`` defaults per
+    backend: 1e-10 dense, 1e-8 iterative and stochastic; ``probes`` is the
+    matrix-free solvers' own argument."""
     if backend in ("iterative", "stochastic"):
         if key is None:
             key = rnd.key(0)
@@ -221,7 +265,8 @@ def make_solver(backend: str, cov: Covariance, theta, x, y, sigma_n: float,
                    1e-8 if jitter is None else jitter, opts, op=op,
                    probes=probes)
     if backend == "dense":
-        raise _pending.pending("backend 'dense'", _pending.DENSE)
+        return DenseCholeskySolver(cov, theta, x, y, sigma_n,
+                                   1e-10 if jitter is None else jitter)
     raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
 
 

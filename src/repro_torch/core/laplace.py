@@ -1,11 +1,13 @@
 """Laplace hyperevidence and Bayes factors (paper Sec. 2a, eq. 2.13).
 
-Counterpart of the profiled engine path of ``repro/core/laplace.py``
-(the iterative and stochastic backends):
-ln Z = ln P_marg(theta_hat) - ln V + (m/2) ln 2 pi - (1/2) ln det H, with
-sigma_f marginalised analytically (eqs. 2.18-2.19) and H the central
-difference Hessian of the engine gradient.  The multimodal variant sums
-the per-mode evidences over the distinct restart peaks.
+Counterpart of ``repro/core/laplace.py``:
+ln Z = ln P_marg(theta_hat) - ln V + (m/2) ln 2 pi - (1/2) ln det H.
+:func:`_evidence_profiled_impl` marginalises sigma_f analytically
+(eqs. 2.18-2.19): on the dense backend H is the analytic Hessian of
+eq. (2.19), on the others the central-difference Hessian of the engine
+gradient.  :func:`evidence_full` keeps sigma_f as an explicit flat
+coordinate (eqs. 2.5, 2.9).  The multimodal variant sums the per-mode
+evidences over the distinct restart peaks.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .. import _pending
 from .. import _sync
 from . import engine as eng
 from . import hyperlik as hl
@@ -62,32 +63,38 @@ def _laplace_log_z(log_peak, log_volume, H):
 
 def _evidence_profiled_impl(cov: Covariance, theta_hat, x, y, sigma_n: float,
                             box: FlatBox, jeffreys_norm: float = 1.0,
-                            jitter: float = 1e-10, backend: str = "iterative",
+                            jitter: float = 1e-10, backend: str = "dense",
                             key=None,
                             solver_opts: eng.SolverOpts = eng.SolverOpts(),
                             op=None) -> LaplaceResult:
-    """Laplace evidence with sigma_f marginalised analytically."""
-    if backend == "dense":
-        raise _pending.pending(f"evidence on backend {backend!r}",
-                               _pending.DENSE)
+    """Laplace evidence with sigma_f marginalised analytically:
+    ln P_marg = marginal_const(n) + ln P_max (eq. 2.18), whose Hessian is
+    the profiled one (eq. 2.19; central differences of the gradient off
+    the dense backend, with one fixed probe key)."""
     n = int(y.shape[0])
     theta_hat = torch.as_tensor(theta_hat, dtype=x.dtype, device=x.device)
-    solver = eng.make_solver(backend, cov, theta_hat, x, y, sigma_n, key=key,
-                             jitter=jitter, opts=solver_opts, op=op)
+    solver = eng.make_solver(backend, cov, theta_hat, x, y, sigma_n,
+                             key=key, jitter=jitter, opts=solver_opts, op=op)
     lp_max = eng.profiled_loglik(solver)
-    grad = eng.grad_fn(backend, cov, x, y, sigma_n, key=key, jitter=jitter,
-                       opts=solver_opts, op=op)
-    ddlp = eng.fd_hessian(grad, theta_hat, step=solver_opts.fd_step)
+    if backend == "dense":
+        ddlp = hl.profiled_hessian(cov, theta_hat, x, y, sigma_n,
+                                   solver.cache, jitter)
+    else:
+        grad = eng.grad_fn(backend, cov, x, y, sigma_n, key=key,
+                           jitter=jitter, opts=solver_opts, op=op)
+        ddlp = eng.fd_hessian(grad, theta_hat, step=solver_opts.fd_step)
     sf_hat = torch.sqrt(solver.sigma2_hat())
     lp_marg = lp_max + hl.marginal_const(n, jeffreys_norm)
-    H = -ddlp
     log_v = log_prior_volume(cov, box)
-    log_z, logdet = _laplace_log_z(lp_marg, log_v, H)
+    return _laplace_result(lp_marg, log_v, -ddlp, theta_hat, sf_hat)
+
+
+def _laplace_result(log_peak, log_v, H, theta, sf_hat) -> LaplaceResult:
+    log_z, logdet = _laplace_log_z(log_peak, log_v, H)
     H_inv, info = torch.linalg.inv_ex(H)     # singular H: nan, no raise
     errors = torch.where(info == 0, torch.sqrt(torch.clamp(
-        torch.diagonal(H_inv), min=0.0)), torch.full_like(theta_hat,
-                                                          torch.nan))
-    return LaplaceResult(log_z, lp_marg, theta_hat, H, errors, log_v, logdet,
+        torch.diagonal(H_inv), min=0.0)), torch.full_like(theta, torch.nan))
+    return LaplaceResult(log_z, log_peak, theta, H, errors, log_v, logdet,
                          sf_hat)
 
 
@@ -139,7 +146,7 @@ def _evidence_multimodal_impl(cov: Covariance, theta_all, log_p_all, x, y,
                               jitter: float = 1e-10,
                               dedupe_tol: float = 0.05,
                               lp_window: float = 15.0,
-                              backend: str = "iterative", key=None,
+                              backend: str = "dense", key=None,
                               solver_opts: eng.SolverOpts = eng.SolverOpts(),
                               op=None) -> MultimodalResult:
     """ln Z ~= ln sum_k Z_k over the distinct restart peaks; modes whose
@@ -162,6 +169,43 @@ def _evidence_multimodal_impl(cov: Covariance, theta_all, log_p_all, x, y,
     return MultimodalResult(log_z=log_z, n_modes=len(modes),
                             modes=np.asarray(modes), log_z_modes=log_zs,
                             best=best)
+
+
+def evidence_full(cov: Covariance, theta_hat, log_sigma_f_hat, x, y,
+                  sigma_n: float, box_with_scale: FlatBox,
+                  jitter: float = 1e-10) -> LaplaceResult:
+    """Laplace evidence with sigma_f explicit (flat in ln sigma_f).
+
+    The hyperparameters are (theta, ln sigma_f); the value, gradient and
+    Hessian are eqs. (2.5), (2.7), (2.9) of the scaled covariance
+    sigma_f^2 (k + sigma_n^2 I), whose noise is inside its ``fn`` (so K is
+    built with sigma_n = 0, the jitter only)."""
+    m = cov.n_params
+
+    def fn(th, x1, x2):
+        base = cov.fn(th[:m], x1, x2)
+        noise = (sigma_n ** 2 * torch.eye(x1.shape[0], dtype=base.dtype,
+                                          device=base.device)
+                 if x1.shape == x2.shape else 0.0)
+        return torch.exp(2.0 * th[m]) * (base + noise)
+
+    scaled = Covariance(
+        name=cov.name + "+logsf",
+        param_names=cov.param_names + ("log_sigma_f",), fn=fn,
+        timescale_idx=cov.timescale_idx, smoothness_idx=cov.smoothness_idx,
+        ordering_groups=cov.ordering_groups)
+    theta_hat = torch.as_tensor(theta_hat, dtype=x.dtype, device=x.device)
+    th_full = torch.cat([theta_hat, torch.as_tensor(
+        [float(log_sigma_f_hat)], dtype=x.dtype, device=x.device)])
+    lp, cache = hl.loglik(scaled, th_full, x, y, 0.0, jitter)
+    H = -hl.loglik_hessian(scaled, th_full, x, y, 0.0, cache, jitter)
+    box = FlatBox(torch.as_tensor(box_with_scale[0], dtype=x.dtype,
+                                  device=x.device),
+                  torch.as_tensor(box_with_scale[1], dtype=x.dtype,
+                                  device=x.device))
+    nan = torch.full((), torch.nan, dtype=x.dtype, device=x.device)
+    return _laplace_result(lp, log_prior_volume(scaled, box), H, th_full,
+                           nan)
 
 
 def log_bayes_factor(za: LaplaceResult, zb: LaplaceResult):

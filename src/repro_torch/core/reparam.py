@@ -92,6 +92,15 @@ def apply_ordering(cov: Covariance, theta):
     return theta
 
 
+def ordering_ok(cov: Covariance, theta):
+    """True where theta satisfies every ordering constraint."""
+    ok = torch.ones(theta.shape[:-1], dtype=torch.bool, device=theta.device)
+    for grp in cov.ordering_groups:
+        vals = theta[..., list(grp)]
+        ok = ok & torch.all(torch.diff(vals, dim=-1) >= 0, dim=-1)
+    return ok
+
+
 def sample_uniform(key, cov: Covariance, box: FlatBox, shape=()):
     """Uniform draws over the (ordering-constrained) flat box."""
     u = rnd.uniform(key, tuple(shape) + (cov.n_params,), 0.0, 1.0,
@@ -100,6 +109,11 @@ def sample_uniform(key, cov: Covariance, box: FlatBox, shape=()):
     if cov.ordering_groups:
         theta = apply_ordering(cov, theta)
     return theta
+
+
+def in_box(box: FlatBox, theta):
+    """True where theta lies in the box (edges included)."""
+    return torch.all((theta >= box.lo) & (theta <= box.hi), dim=-1)
 
 
 def to_box(z, box: FlatBox):

@@ -1,13 +1,15 @@
 """Multi-start NCG maximisation of the profiled hyperlikelihood (Sec. 3a).
 
-Counterpart of the engine branch of ``repro/core/train.py`` (the
-iterative and stochastic backends):
-Polak-Ribiere+ nonlinear CG with Armijo backtracking, in the unconstrained
-coordinate z with theta = box-sigmoid(z).  The JAX package runs the loops
-as ``while_loop``s and the restarts under ``lax.map`` (one after another);
-here they are Python loops with the same acceptance logic, reading the loop
-conditions back to the host (counted in :mod:`repro_torch._sync`).  Every
-likelihood evaluation is counted, as in the paper.
+Counterpart of ``repro/core/train.py``: Polak-Ribiere+ nonlinear CG with
+Armijo backtracking, in the unconstrained coordinate z with
+theta = box-sigmoid(z).  The JAX package runs the loops as ``while_loop``s,
+the dense restarts under ``vmap`` (each lane frozen once its own condition
+fails, so each lane is a run of its own) and the matrix-free ones under
+``lax.map``; here every restart is a Python loop with the same acceptance
+logic, one after another, reading the loop conditions back to the host
+(counted in :mod:`repro_torch._sync`).  The dense scan evaluates its
+points in chunks of batched Cholesky factorisations.  Every likelihood
+evaluation is counted, as in the paper.
 """
 
 from __future__ import annotations
@@ -16,10 +18,10 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .. import _pending
 from .. import _sync
 from .. import random as rnd
 from . import engine as eng
+from . import hyperlik as hl
 from .covariances import Covariance
 from .reparam import (FlatBox, apply_ordering, flat_box, from_box,
                       sample_uniform, to_box)
@@ -48,13 +50,12 @@ class TrainResult(NamedTuple):
 
 
 def make_objective(cov: Covariance, x, y, sigma_n: float, box: FlatBox,
-                   jitter: float = 1e-10, backend: str = "iterative",
+                   jitter: float = 1e-10, backend: str = "dense",
                    key=None, solver_opts: eng.SolverOpts = eng.SolverOpts(),
                    op=None):
-    """(value, grad) and value-only callables of z (engine backends)."""
-    if backend == "dense":
-        raise _pending.pending(f"training on backend {backend!r}",
-                               _pending.DENSE)
+    """(value, grad) and value-only callables of z, each one likelihood
+    evaluation through the engine's solver: one Cholesky on the dense
+    backend, one fixed probe key on the others."""
     lo, hi = box.lo, box.hi
     widths = box.widths
     vag_t = eng.value_and_grad_fn(backend, cov, x, y, sigma_n, key=key,
@@ -125,19 +126,18 @@ def _train_impl(cov: Covariance, x, y, sigma_n: float, key,
                 n_starts: int = 10, max_iters: int = 80,
                 grad_tol: float = 1e-5, jitter: float = 1e-10,
                 box: FlatBox | None = None, z0s=None, scan_points: int = 0,
-                backend: str = "iterative",
+                backend: str = "dense",
                 solver_opts: eng.SolverOpts = eng.SolverOpts(),
                 op=None) -> TrainResult:
-    """Paper Sec. 3a: multi-start NCG on ln P_max (engine backends).
+    """Paper Sec. 3a: multi-start NCG on ln P_max.
 
     ``scan_points > 0`` seeds the restarts with the best points of a
-    uniform scan of the box (each scan evaluation counted); otherwise the
-    starts are uniform over the central 90% of the box in z.  ``z0s``
+    uniform scan of the box (each scan evaluation counted; on the dense
+    backend in chunks of batched Cholesky factorisations,
+    :func:`~repro_torch.core.hyperlik.profiled_loglik_batch`); otherwise
+    the starts are uniform over the central 90% of the box in z.  ``z0s``
     pins the start points.
     """
-    if backend == "dense":
-        raise _pending.pending(f"training on backend {backend!r}",
-                               _pending.DENSE)
     if box is None:
         box = flat_box(cov, x)
     scan_evals = 0
@@ -145,10 +145,14 @@ def _train_impl(cov: Covariance, x, y, sigma_n: float, key,
         if scan_points > 0:
             ks, key = rnd.split(key, 2)
             cand = sample_uniform(ks, cov, box, (scan_points,)).to(x.dtype)
-            val_t = eng.value_fn(backend, cov, x, y, sigma_n,
-                                 key=rnd.fold_in(key, SCAN_KEY),
-                                 jitter=jitter, opts=solver_opts, op=op)
-            vals = torch.stack([val_t(c) for c in cand])
+            if backend == "dense":
+                vals = hl.profiled_loglik_batch(cov, cand, x, y, sigma_n,
+                                                jitter)
+            else:
+                val_t = eng.value_fn(backend, cov, x, y, sigma_n,
+                                     key=rnd.fold_in(key, SCAN_KEY),
+                                     jitter=jitter, opts=solver_opts, op=op)
+                vals = torch.stack([val_t(c) for c in cand])
             top = torch.argsort(torch.where(torch.isnan(vals),
                                             torch.full_like(vals, -torch.inf),
                                             vals), stable=True)

@@ -1,1 +1,2 @@
-"""Host-side data probes."""
+"""Data: grid-structure probes (host side) and the synthetic and tidal
+records of the paper."""

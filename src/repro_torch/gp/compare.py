@@ -12,8 +12,8 @@ evaluates candidate kernels on one data set and returns the
     launch per CG or Lanczos iteration, on (n, d) grids the unfused
     Kronecker cycle on ``torch.fft``), and the Laplace Hessians of every
     model's modes come from 2 m_max batched gradient evaluations;
-  * sequential (``batch="off"`` or not batchable): one bound session per
-    spec, bind -> fit -> log_evidence.
+  * sequential (``batch="off"``, not batchable, or any spec on the dense
+    backend): one bound session per spec, bind -> fit -> log_evidence.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def compare(specs: Sequence[Union[GPSpec, str]], x, y, key=None,
                          f"'auto', 'on' or 'off'")
     if run_nested:
         raise _pending.pending("the nested-sampling baseline",
-                               _pending.DENSE)
+                               _pending.NESTED)
     n = int(len(y))
     backend_ok = all(s.solver.resolve_backend(n) == "iterative"
                      for s in specs)

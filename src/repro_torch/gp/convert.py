@@ -3,8 +3,9 @@
 A JAX session's state, handed over as plain numbers and numpy arrays, is
 turned into the port's: the spec (kernel name, NoiseModel, SolverPolicy and
 SolverOpts values), the flat box (lo, hi) and the TrainResult.  With it the
-port's ``log_evidence`` and ``predict`` run on a fit made by the JAX
-package, so each stage can be checked on its own.  Multi-axis sessions
+port's ``log_evidence``, ``predict`` and ``sample`` run on a fit made by
+the JAX package, so each stage can be checked on its own; a dense fit
+(n <= dense_cutoff) comes across with no operator, as it was bound.  Multi-axis sessions
 and banks (composite kinds on (n, d) x) come across the same way: the
 port binds its own operator on x and takes the state as it is.  A JAX
 ``BankTrainResult`` comes across the same way (:func:`bank_from_state`),

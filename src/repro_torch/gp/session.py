@@ -11,13 +11,15 @@ are immutable: ``fit`` returns a new, fitted session.
     lnz = gp.log_evidence().log_z
     post = gp.predict(xstar)
 
-``device=None`` means the card.  The port runs the iterative backend on
-the tile operator (irregular x), the Toeplitz operator (an exact grid),
-the SKI operator (a near grid: a gappy record), and for a composite
-"a*b" kind on (n, d) x the Kronecker operator (a full product grid) and
-the product-SKI operator (a gappy field); and the stochastic backend on
-the tile operator (structure-free data at large n).  Everything else
-raises and names the slice that brings it.
+``device=None`` means the card.  The port runs the dense backend (one
+Cholesky per evaluation, the default up to ``dense_cutoff`` points; no
+operator is bound), the iterative backend on the tile operator (irregular
+x), the Toeplitz operator (an exact grid), the SKI operator (a near grid:
+a gappy record), and for a composite "a*b" kind on (n, d) x the Kronecker
+operator (a full product grid) and the product-SKI operator (a gappy
+field); and the stochastic backend on the tile operator (structure-free
+data at large n).  Everything else raises and names the slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ class GP:
         An explicit "stochastic" binds the tile operator unless the spec
         names another (the iteration applies exact kernel rows; the
         operator supplies its column oracles and tangents).  The dense
-        backend is not ported.
+        backend binds no operator (``operator_name`` "dense") and takes
+        any registered covariance, tiled or not.
         """
         dev = resolve_device(device)
         x = as_tensor(x, dev, dtype)
@@ -81,29 +84,29 @@ class GP:
         cov = spec.cov
         n = int(y.shape[0])
         backend = spec.solver.resolve_backend(n)
-        if backend == "dense":
-            raise _pending.pending(f"backend 'dense' (n = {n})",
-                                   _pending.DENSE)
         jitter = spec.noise.jitter_for(backend)
         if spec.box is not None:
             box = FlatBox(as_tensor(spec.box.lo, dev, dtype),
                           as_tensor(spec.box.hi, dev, dtype))
         else:
             box = flat_box(cov, x)
-        kind = eng.resolve_kind(cov)
-        operator = spec.solver.opts.operator
-        if backend == "stochastic" and operator is None:
-            operator = "pallas"
-        op = kopers.select_operator(kind, x, float(spec.noise.sigma_n),
-                                    float(jitter), operator=operator,
-                                    fused=spec.solver.opts.fused)
-        # the three-way auto dispatch: no grid structure at large n leaves
-        # the O(n^2)-per-CG-iteration exact path for the O(b n)-per-step
-        # stochastic one
-        if (backend == "iterative" and spec.solver.backend == "auto"
-                and op.name == "pallas"
-                and n >= _stochastic.STOCHASTIC_AUTO_MIN_N):
-            backend = "stochastic"
+        kind = None
+        op = None
+        if backend in ("iterative", "stochastic"):
+            kind = eng.resolve_kind(cov)
+            operator = spec.solver.opts.operator
+            if backend == "stochastic" and operator is None:
+                operator = "pallas"
+            op = kopers.select_operator(kind, x, float(spec.noise.sigma_n),
+                                        float(jitter), operator=operator,
+                                        fused=spec.solver.opts.fused)
+            # the three-way auto dispatch: no grid structure at large n
+            # leaves the O(n^2)-per-CG-iteration exact path for the
+            # O(b n)-per-step stochastic one
+            if (backend == "iterative" and spec.solver.backend == "auto"
+                    and op.name == "pallas"
+                    and n >= _stochastic.STOCHASTIC_AUTO_MIN_N):
+                backend = "stochastic"
         return cls(spec, x, y, box, backend, jitter, kind, op)
 
     def rebind(self, x, y, op="auto") -> "GP":
@@ -126,7 +129,8 @@ class GP:
 
     @property
     def operator_name(self) -> str:
-        return self.op.name
+        """The bound structure: "dense" or the operator's name."""
+        return self.op.name if self.op is not None else "dense"
 
     @property
     def theta_hat(self):
@@ -149,13 +153,14 @@ class GP:
         """Multi-start NCG on the profiled hyperlikelihood (Sec. 3a).
 
         Budgets default to the spec's :class:`SolverPolicy`
-        (``scan_points=None``: no scan on the iterative backend).  Returns a
-        new fitted session carrying the box it was trained in.
+        (``scan_points=None``: 256 scan points per hyperparameter on the
+        dense backend, none on the others).  Returns a new fitted session
+        carrying the box it was trained in.
         """
         pol = self.spec.solver
         sp = scan_points if scan_points is not None else pol.scan_points
         if sp is None:
-            sp = 0
+            sp = 256 * self.cov.n_params if self.backend == "dense" else 0
         fit_box = self.box if box is None else FlatBox(
             as_tensor(box[0], self.device, self.x.dtype),
             as_tensor(box[1], self.device, self.x.dtype))
@@ -192,7 +197,7 @@ class GP:
         """
         if method == "nested":
             raise _pending.pending("the nested-sampling evidence",
-                                   _pending.DENSE)
+                                   _pending.NESTED)
         if method != "laplace":
             raise ValueError(f"unknown evidence method {method!r}; choose "
                              f"'laplace' or 'nested'")
@@ -243,7 +248,13 @@ class GP:
             op=self.op, var_chunk=var_chunk, cross=cross)
 
     def sample(self, key, xstar, n_draws: int = 1, theta=None):
-        """Joint posterior draws at xstar, dense in the JAX package
-        whatever the backend: not ported yet."""
-        raise _pending.pending("GP.sample (joint posterior draws)",
-                               _pending.DENSE)
+        """Joint posterior draws at xstar, (n_draws, n*) (paper Fig. 1).
+
+        Dense whatever the backend (a joint draw factorises the full
+        (n*, n*) predictive covariance): for plotting-sized xstar.
+        """
+        th = theta if theta is not None else self.theta_hat
+        return _predict.draw_posterior(
+            _as_key(key), self.cov, as_tensor(th, self.device, self.x.dtype),
+            self.x, self.y, as_tensor(xstar, self.device, self.x.dtype),
+            self.spec.noise.sigma_n, n_draws=n_draws)

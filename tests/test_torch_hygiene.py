@@ -35,7 +35,9 @@ def _one_torch_thread():
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "large_scale_gp_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "large_scale_gp_torch.py",
+    ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "tidal_analysis_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -227,18 +229,54 @@ def _scattered2(n=120, seed=0):
     return np.random.default_rng(seed).uniform(0.0, 5.0, (n, 2))
 
 
+# branches that the dense slice lifted: each now binds or answers
+LIFTED = ("backend_dense", "auto_small_n", "dense_only_kind", "gp_sample")
+
+
+@pytest.mark.parametrize("what", LIFTED)
+def test_dense_lifted_branches_answer(what):
+    """The branches that the dense slice lifted from
+    :func:`test_unported_branches_raise_not_implemented` now bind or
+    answer."""
+    x, y = _irregular()
+    theta = [5.0, 2.0, 0.0]
+    if what in ("backend_dense", "auto_small_n"):
+        backend = "dense" if what == "backend_dense" else "auto"
+        gp = tgp.GP.bind(_spec(backend=backend), x, y, device="cpu")
+        assert (gp.backend, gp.operator_name, gp.op) == ("dense", "dense",
+                                                         None)
+        assert gp.n <= gp.spec.solver.dense_cutoff
+        assert torch.isfinite(gp.log_likelihood(theta))
+    elif what == "dense_only_kind":
+        # no tile: the dense backend takes it, the iterative one refuses
+        # it with the JAX package's ValueError
+        cov = resolve("periodic")
+        assert cov.name == "periodic" and cov.n_params == 2
+        gp = tgp.GP.bind(_spec("periodic", backend="auto"), x, y,
+                         device="cpu")
+        assert gp.backend == "dense"
+        assert torch.isfinite(gp.log_likelihood([2.0, 0.1]))
+        with pytest.raises(ValueError, match="no registered tile"):
+            tgp.GP.bind(_spec("periodic"), x, y, device="cpu")
+        with pytest.raises(ValueError, match="no registered tile"):
+            teng.resolve_kind(resolve("rq*se"))
+    else:
+        # joint draws are dense whatever the backend
+        gp = tgp.GP.bind(_spec(), x, y, device="cpu")
+        assert gp.backend == "iterative"
+        draws = gp.sample(0, x[:5], theta=theta, n_draws=2)
+        assert draws.shape == (2, 5) and torch.isfinite(draws).all()
+
+
 @pytest.mark.parametrize("what", [
-    "backend_dense", "auto_small_n", "operator_lowrank", "precond_pivchol",
-    "precond_rank", "dense_only_kind", "nested_evidence", "bank_pivchol",
-    "bank_precond_rank", "gp_rebind", "gp_sample"])
+    "operator_lowrank", "precond_pivchol", "precond_rank",
+    "nested_evidence", "bank_pivchol", "bank_precond_rank", "gp_rebind"])
 def test_unported_branches_raise_not_implemented(what):
+    """Each branch that the port does not run raises NotImplementedError
+    and names its queue-A slice."""
     x, y = _irregular()
     near = _near()
     cases = {
-        "backend_dense": lambda: tgp.GP.bind(_spec(backend="dense"), x, y,
-                                             device="cpu"),
-        "auto_small_n": lambda: tgp.GP.bind(_spec(backend="auto"), x, y,
-                                            device="cpu"),
         "operator_lowrank": lambda: tgp.GP.bind(
             _spec(operator="lowrank"), x, y, device="cpu"),
         "precond_pivchol": lambda: tgp.GP.bind(
@@ -247,7 +285,6 @@ def test_unported_branches_raise_not_implemented(what):
         "precond_rank": lambda: tgp.GP.bind(
             _spec(precond_rank=8), x, y, device="cpu").log_likelihood(
                 [5.0, 2.0, 0.0]),
-        "dense_only_kind": lambda: resolve("periodic"),
         "nested_evidence": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
         .log_evidence(method="nested"),
         "bank_pivchol": lambda: tgp.compare(
@@ -258,8 +295,6 @@ def test_unported_branches_raise_not_implemented(what):
             near, np.sin(near), batch="on", device="cpu"),
         "gp_rebind": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
         .rebind(x, y),
-        "gp_sample": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
-        .sample(0, x[:5], theta=[5.0, 2.0, 0.0]),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
         cases[what]()
@@ -267,15 +302,16 @@ def test_unported_branches_raise_not_implemented(what):
         assert "the rest of slice S2" in str(err.value)
     if what == "gp_rebind":
         assert _pending.SERVE in str(err.value)
-    if what == "gp_sample":
-        assert _pending.DENSE in str(err.value)
+    if what == "nested_evidence":
+        assert _pending.NESTED in str(err.value)
 
 
 def test_pending_names_only_slices_still_to_come():
     """The refusal constants name queue-A slices that are not ported; the
-    bank's constant went when the bank slice landed."""
+    bank's constant went when the bank slice landed, the dense one with
+    the dense slice."""
     names = {k for k in vars(_pending) if k.isupper()}
-    assert names == {"DENSE", "PIVCHOL", "SERVE", "LM"}
+    assert names == {"NESTED", "PIVCHOL", "SERVE", "LM"}
 
 
 @pytest.mark.parametrize("what", ["backend_stochastic", "auto_huge_n",
