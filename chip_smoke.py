@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed S] [--budget committed|planned] [--json PATH]
                           [--six-month SIGMA_N,STARTS,ITERS,SCAN[,MONTHS]]
-                          [--nd] [--stochastic] [--distributed]
+                          [--nd] [--stochastic] [--distributed] [--dense]
+                          [--nested]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU.  It builds
 the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per source, all
@@ -212,7 +213,29 @@ started together) and then:
      larger of |g_i| and sqrt|H_ii|, the gradient one error bar away;
      Hessian entries relative to sqrt|H_ii H_jj|), and on the 1-month
      record (n = 328) at the tide k2 peak ln P_max, the gradient and the
-     Hessian on the card agree with the CPU to 1e-10 relative.
+     Hessian on the card agree with the CPU to 1e-10 relative;
+ 10. nested phase (the paper's baseline, core/nested.py):
+       (a) compare(["k1", "k2"], run_nested=True, batch="off") on the
+           quickstart record (synthetic(key 42 + seed, 100, "k2")) at the
+           example's fit budget, NESTED_N_LIVE live points, 8 chains x 16
+           steps, at most NESTED_MAX_ITER iterations: prints, per model,
+           ln Z_laplace, ln Z_nested +- err, their difference in units of
+           err, the nested evaluations, the speed-up in evaluations, the
+           iterations, the host reads and the nested run's seconds; fails
+           unless both ln Z are finite for both models, n_evals = n_live
+           + iterations x 128, no hand kernel launched and each model's
+           chain steps ran as one CUDA graph (nested.GRAPHS);
+       (b) the nested evidence of k2 on synthetic(key 7 + seed, 30, "k2")
+           (40 live points, 60 iterations, key 11, NESTED_SMALL_BOX) on the
+           card and on the CPU: the draws come from the same CPU
+           generators, so ln Z and H must agree to 1e-8 relative with
+           equal iterations;
+       (c) the matrix-free integrand: k2 on make_data's irregular recipe
+           at n = 4096 (backend "auto" binds the iterative tile
+           operator), 16 live points, 4 chains x 2 steps, 2 iterations;
+           fails unless B1 (tile_matvec) launched, n_evals = 16 + 2 x 8
+           and ln Z > -1e289 (some point's ln L above the -1e290 of a
+           failed evaluation).
 
 After the build, five lines give the registers, stack frame and spills
 from nvcc's -Xptxas -v of every instantiation of the value sweep (B1,
@@ -224,10 +247,10 @@ axis and width: ptxas_product_tangent), of B10's line kernels
 (ptxas_ski_lines) and of the line kernels that B5, B6 and B7 share
 (ptxas_ski_lines_1d).
 
-Phase 1 runs alone.  Phases 2-9 then run in four worker processes side by
+Phase 1 runs alone.  Phases 2-10 then run in five worker processes side by
 side on the card (WORKERS: the SKI phase; the N-D phase; check 4 and the
 small-input checks; the irregular, stochastic, distributed and dense
-phases),
+phases; the nested phase),
 each worker its phases in turn with a share of the host's cores, since
 their CG loops are host-bound; the script waits for all of them (the
 first failure stops the others) and prints each worker's output in that
@@ -302,6 +325,7 @@ cases of B12/B13 and the stochastic shapes of B2 and B9, check 6 and the
 stochastic small-input checks.
 ``--distributed`` builds the kernels and runs only the cases of B3 and
 check 7.  ``--dense`` runs only phase 9 (it builds no kernel).
+``--nested`` builds the kernels and runs only phase 10.
 
 ``--budget planned`` runs the irregular phase with the budget first planned
 for it (the data-dependent box, max_iters=5, no scan) instead of the
@@ -338,6 +362,7 @@ from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import iterative as it  # noqa: E402
 from repro_torch.core import hyperlik  # noqa: E402
 from repro_torch.core import laplace  # noqa: E402
+from repro_torch.core import nested  # noqa: E402
 from repro_torch.core import predict  # noqa: E402
 from repro_torch.core import distributed  # noqa: E402
 from repro_torch.core import stochastic  # noqa: E402
@@ -556,6 +581,20 @@ DENSE_FD_STEP = 0.005      # five-point stencils, in error bars
 DENSE_GRAD_TOL = 1e-6
 DENSE_HESS_TOL = 1e-5
 DENSE_CPU_TOL = 1e-10
+NESTED_N_LIVE = 400          # the paper's live points (benchmarks/speedup.py)
+NESTED_MAX_ITER = 20000      # compare()'s default nested_max_iter
+NESTED_SMALL = dict(n=30, n_live=40, max_iter=60)
+# k2's box for the card-vs-CPU run on t = 1..30: windows over a neighbour
+# (T0 >= 3), smoothness l >= 0.7 (xi >= -0.25).  Where a short window or a
+# small l zeroes K's off-diagonal, ln P is one value over a region and its
+# neighbours differ from it by an ulp, rounded otherwise by cuSOLVER and
+# LAPACK; a chain step there (L > L*, L* that value) turns on those bits
+NESTED_SMALL_BOX = ([math.log(3.0), math.log(2.0), -0.25, math.log(2.0),
+                     -0.25],
+                    [math.log(29.0), math.log(30.0), 0.45, math.log(30.0),
+                     0.45])
+NESTED_CPU_TOL = 1e-8
+NESTED_MF = dict(n=4096, n_live=16, n_chains=4, n_steps=2, max_iter=2)
 
 
 def emit(obj) -> None:
@@ -682,16 +721,16 @@ def tile_nd_bound(kinds, n1, n2, b, m=0):
                                      + ns * (d - 1)), 2.0 * entries * ns * b)
 
 
-def make_data(seed: int, dev):
-    """Sorted uniform sampling times over 8760 h (irregular: classify_grid
+def make_data(seed: int, dev, n: int = N):
+    """n sorted uniform sampling times over 8760 h (irregular: classify_grid
     says so) and one draw of a quasi-periodic GP: k2 with a 200 h window,
     periods 12.42 h and 24 h, unit scale and sigma_n noise.  The draw is
     L z with L the Cholesky factor of the dense covariance on the card and
     z from numpy's generator."""
     rng = np.random.default_rng(seed)
-    x = np.sort(rng.uniform(0.0, 8760.0, N))
+    x = np.sort(rng.uniform(0.0, 8760.0, n))
     xstar = np.sort(rng.uniform(0.0, 8760.0, N_STAR))
-    z = rng.standard_normal(N)
+    z = rng.standard_normal(n)
     p = ops.natural_params("k2", torch.tensor(TRUTH, dtype=torch.float64))
     xt = torch.tensor(x, device=dev)
     K = matrix_ref("k2", p.to(dev), xt, xt)
@@ -2754,6 +2793,136 @@ def dense_phase(seed, dev):
     return summary
 
 
+def nested_identity(n_evals, n_live, per_iter, n_iters):
+    """n_evals = n_live + n_iters x per_iter (the JAX package's count)."""
+    return n_evals == n_live + n_iters * per_iter
+
+
+def nested_phase(seed, dev):
+    """The nested-sampling baseline through the front door (phase 10):
+    (a) compare(run_nested=True) on the quickstart record, (b) the card
+    against the CPU on a small record, (c) the matrix-free integrand."""
+    stage = Stages("nested")
+    _cuda.reset_launches()
+    _sync.reset()
+    runs = []
+    impl = nested._evidence_nested_impl
+
+    def timed(*a, **kw):
+        reads = _sync.COUNT["nested_iter"]
+        t0 = time.perf_counter()
+        res = impl(*a, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(s=time.perf_counter() - t0, n_iters=res.n_iters,
+                         n_evals=res.n_evals, h_info=float(res.h_info),
+                         host_reads=_sync.COUNT["nested_iter"] - reads))
+        return res
+
+    nested._evidence_nested_impl = timed
+    nested.GRAPHS.clear()
+    try:
+        quick = synthetic(rnd.key(42 + seed), DENSE_QUICK_N, "k2")
+        specs = gp.spec_bank(["k1", "k2"],
+                             noise=gp.NoiseModel(quick.sigma_n),
+                             solver=gp.SolverPolicy(backend="auto",
+                                                    **DENSE_QUICK_BUDGET))
+        reports = stage("quickstart_compare_nested", lambda: gp.compare(
+            specs, quick.x, quick.y, key=rnd.key(0), run_nested=True,
+            n_live=NESTED_N_LIVE, nested_max_iter=NESTED_MAX_ITER,
+            batch="off"))
+    finally:
+        nested._evidence_nested_impl = impl
+    launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    out = dict(seed=seed, n=DENSE_QUICK_N, n_live=NESTED_N_LIVE,
+               max_iter=NESTED_MAX_ITER, stage_s=stage.s, models={},
+               hand_kernel_launches=launches,
+               host_syncs_by_loop=dict(_sync.COUNT),
+               step_graphs=dict(nested.GRAPHS))
+    for r, run in zip(reports, runs):
+        err = r.log_z_nested_err
+        out["models"][r.name] = dict(
+            log_z_laplace=r.log_z_laplace, log_z_nested=r.log_z_nested,
+            log_z_nested_err=err,
+            diff_in_err=(r.log_z_nested - r.log_z_laplace) / err,
+            n_evals_train=r.n_evals_train, n_evals_nested=r.n_evals_nested,
+            speedup=r.speedup, n_modes=r.n_modes, **run)
+    out["ln_b_laplace"] = reports[1].log_z_laplace - reports[0].log_z_laplace
+    out["ln_b_nested"] = reports[1].log_z_nested - reports[0].log_z_nested
+    emit({"nested": out})
+    check_finite([(f"nested {r.name} {what}", v) for r in reports
+                  for what, v in (("ln Z_laplace", r.log_z_laplace),
+                                  ("ln Z_nested", r.log_z_nested))])
+    if len(runs) != len(reports) or not all(
+            nested_identity(r.n_evals_nested, NESTED_N_LIVE, 8 * 16,
+                            run["n_iters"]) for r, run in zip(reports, runs)):
+        raise AssertionError(f"nested: n_evals is not n_live + iterations "
+                             f"x 128: {out['models']}")
+    if launches:
+        raise AssertionError(f"the dense nested path launched hand "
+                             f"kernels: {launches}")
+    if nested.GRAPHS["captured"] != len(reports):
+        raise AssertionError(f"the dense chain steps were not captured as "
+                             f"one CUDA graph a model: {dict(nested.GRAPHS)}")
+
+    # (b) the card against the CPU: the same key, the same CPU draws.  The
+    # box keeps K off the diagonal plateau (see NESTED_SMALL_BOX)
+    small = synthetic(rnd.key(7 + seed), NESTED_SMALL["n"], "k2",
+                      device="cpu")
+    got = {}
+    for where in ("cpu", dev):
+        sess = gp.GP.bind(gp.GPSpec("k2", box=FlatBox(*(
+            torch.tensor(b, dtype=torch.float64) for b in NESTED_SMALL_BOX)),
+            noise=gp.NoiseModel(small.sigma_n)), small.x, small.y,
+            device=where)
+        got[str(where)] = stage(f"small_{torch.device(where).type}",
+                                lambda: sess.log_evidence(
+                                    method="nested", key=rnd.key(11),
+                                    n_live=NESTED_SMALL["n_live"],
+                                    max_iter=NESTED_SMALL["max_iter"]))
+    c, g = got["cpu"], got[str(dev)]
+    small_out = dict(
+        n=NESTED_SMALL["n"], n_iters=[c.n_iters, g.n_iters],
+        log_z=[float(c.log_z), float(g.log_z)],
+        log_z_rel_err=abs(float(g.log_z) - float(c.log_z))
+        / abs(float(c.log_z)),
+        h_rel_err=abs(float(g.h_info) - float(c.h_info))
+        / abs(float(c.h_info)))
+    emit({"nested_card_vs_cpu": small_out})
+    if not (c.n_iters == g.n_iters and max(
+            small_out["log_z_rel_err"], small_out["h_rel_err"])
+            <= NESTED_CPU_TOL):
+        raise AssertionError(f"nested: the card and the CPU disagree: "
+                             f"{small_out}")
+
+    # (c) the matrix-free integrand on the irregular recipe (B1)
+    mf = NESTED_MF
+    x_np, y_np, _ = make_data(seed, dev, n=mf["n"])
+    sess = gp.GP.bind(gp.GPSpec("k2", noise=gp.NoiseModel(SIGMA_N)),
+                      x_np, y_np)
+    before = _cuda.LAUNCHES["tile_matvec"]
+    res = stage("matrix_free", lambda: sess.log_evidence(
+        method="nested", key=rnd.key(3), n_live=mf["n_live"],
+        n_chains=mf["n_chains"], n_steps=mf["n_steps"],
+        max_iter=mf["max_iter"]))
+    b1 = _cuda.LAUNCHES["tile_matvec"] - before
+    mf_out = dict(n=mf["n"], backend=sess.backend,
+                  operator=sess.operator_name, n_iters=res.n_iters,
+                  n_evals=res.n_evals, log_z=float(res.log_z),
+                  tile_matvec_launches=b1, s=stage.s["matrix_free"],
+                  s_per_eval=stage.s["matrix_free"] / res.n_evals,
+                  cg_stops=stage.cg_stops["matrix_free"])
+    emit({"nested_matrix_free": mf_out})
+    if not (b1 > 0 and nested_identity(
+            res.n_evals, mf["n_live"], mf["n_chains"] * mf["n_steps"],
+            res.n_iters) and res.n_iters == mf["max_iter"]
+            and float(res.log_z) > -1e289):
+        raise AssertionError(f"nested: the matrix-free integrand failed: "
+                             f"{mf_out}")
+    out.update(card_vs_cpu=small_out, matrix_free=mf_out,
+               host_reads=_sync.COUNT["nested_iter"])
+    return out
+
+
 def card_vs_cpu(spec, x, y, theta, sigma_n, dev, backend="iterative"):
     """ln P_max and gradient at theta on the card and on the CPU path,
     with the same probes; returns (relative errors, operator name)."""
@@ -2945,15 +3114,17 @@ PHASES = {
     "sequential_vs_bank": lambda a, dev: sequential_vs_bank(a.seed),
     "small_input": lambda a, dev: small_input_check(dev),
     "dense": lambda a, dev: dense_phase(a.seed, dev),
+    "nested": lambda a, dev: nested_phase(a.seed, dev),
 }
 # the worker processes that run those phases side by side on the one card,
 # each its phases in turn.  Their CG loops are host-bound (PERF.md §5): run
 # one after another they took 815-934 s of the script's 1200 on a fast host
 # and ran past it on a slower one, so each worker takes a share of the
 # host's cores; the kernel phase, which times kernels, runs alone before
-# them.  Grouped by their one-after-another times (PERF.md §5).
+# them.  Grouped by their one-after-another times (PERF.md §5); the nested
+# phase's host loop (one iteration per removed live point) has its own.
 WORKERS = (("ski",), ("nd",), ("sequential_vs_bank", "small_input"),
-           ("irregular", "stochastic", "distributed", "dense"))
+           ("irregular", "stochastic", "distributed", "dense"), ("nested",))
 
 
 def run_worker(args, dev) -> int:
@@ -3042,6 +3213,8 @@ def main(argv=None) -> int:
                          "distributed phase with its checks")
     ap.add_argument("--dense", action="store_true",
                     help="run only the dense phase (no kernel is built)")
+    ap.add_argument("--nested", action="store_true",
+                    help="build the kernels and run only the nested phase")
     ap.add_argument("--worker", default=None, metavar="PHASE[,PHASE...]",
                     help="(used by the full run) run only these phases of "
                          f"{sorted(PHASES)} and write their results to "
@@ -3079,6 +3252,15 @@ def main(argv=None) -> int:
     emit({"ptxas_ski_lines": ski_lines_ptxas(_cuda.KERNELS.ptxas_log)})
     emit({"ptxas_ski_lines_1d": ski_lines_ptxas(_cuda.KERNELS.ptxas_log,
                                                 SKI_LINES_1D)})
+    if args.nested:
+        ns = nested_phase(args.seed, dev)
+        if args.json:
+            path = pathlib.Path(args.json)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(dict(device=smi, nested=ns),
+                                       indent=1))
+        emit({"script_s": time.perf_counter() - t_start})
+        return 0
     if args.six_month:
         sig, starts, iters, scan, *months = args.six_month.split(",")
         sequential_vs_bank(args.seed, float(sig), int(starts), int(iters),
@@ -3160,9 +3342,10 @@ def main(argv=None) -> int:
         res = run_workers(args, pathlib.Path(tmp))
     phase_s = dict(kernel=kernel_s, **res["phase_s"],
                    workers=time.perf_counter() - t0)
-    summary, ski, nd, st, dist_out, seq_vs_bank, dense = (
+    summary, ski, nd, st, dist_out, seq_vs_bank, dense, ns = (
         res[k] for k in ("irregular", "ski", "nd", "stochastic",
-                         "distributed", "sequential_vs_bank", "dense"))
+                         "distributed", "sequential_vs_bank", "dense",
+                         "nested"))
 
     launches = {**{k: summary["launches"].get(k, 0) for k in TILE_KERNELS},
                 **{k: ski["launches"].get(k, 0) for k in SKI_KERNELS},
@@ -3193,7 +3376,8 @@ def main(argv=None) -> int:
             device=smi, build_s=build_s, cases=cases, crossover=crossover,
             workflow=summary, ski_workflow=ski, nd=nd, stochastic=st,
             distributed=dist_out, phase_s=phase_s,
-            sequential_vs_bank=seq_vs_bank, dense=dense, kernels=kernels,
+            sequential_vs_bank=seq_vs_bank, dense=dense, nested=ns,
+            kernels=kernels,
             ptxas=_cuda.KERNELS.ptxas_log), indent=1))
     emit({"script_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,6 @@ back to another path (which would answer differently from the JAX package).
 
 from __future__ import annotations
 
-NESTED = "module A3 (core/nested.py, the nested-sampling baseline)"
 PIVCHOL = ("the rest of slice S2 (pivoted-Cholesky preconditioner and "
            "low-rank operator)")
 SERVE = "module A5 (serve/ and checkpoint/)"

@@ -313,12 +313,13 @@ def grad_fn(backend: str, cov: Covariance, x, y, sigma_n: float, key=None,
 
 def value_fn(backend: str, cov: Covariance, x, y, sigma_n: float, key=None,
              jitter: Optional[float] = None, opts: SolverOpts = SolverOpts(),
-             op=None) -> Callable:
-    """theta -> ln P_max (value only: one 1-RHS CG + SLQ)."""
+             op=None, probes=None) -> Callable:
+    """theta -> ln P_max (value only: one 1-RHS CG + SLQ); ``probes``, the
+    matrix-free solvers' probe blocks, drawn once for every theta."""
 
     def val(theta):
         s = make_solver(backend, cov, theta, x, y, sigma_n, key=key,
-                        jitter=jitter, opts=opts, op=op)
+                        jitter=jitter, opts=opts, op=op, probes=probes)
         return profiled_loglik(s)
 
     return val

@@ -229,10 +229,15 @@ SCAN_CHUNK_BYTES = {"cuda": 1 << 30, "cpu": 8 << 20}
 
 def profiled_loglik_batch(cov: Covariance, thetas, x, y, sigma_n: float,
                           jitter: float = 1e-10) -> torch.Tensor:
-    """ln P_max at each row of ``thetas`` (the trainer's scan): K for a
-    chunk of rows at once, at most :data:`SCAN_CHUNK_BYTES` of K a chunk
-    on y's device, one batched Cholesky each; a row whose factorisation
-    fails gives nan."""
+    """ln P_max at each row of ``thetas`` (the trainer's scan, the nested
+    sampler's chain steps): K for a chunk of rows at once, at most
+    :data:`SCAN_CHUNK_BYTES` of K a chunk on y's device, one batched
+    Cholesky each; a row whose factorisation fails gives nan.
+
+    y^T K^-1 y is |L^-1 y|^2, one batched triangular solve (cuBLAS on the
+    card): ``cholesky_solve`` on a batch goes to MAGMA there, which
+    allocates device memory inside the call, so no CUDA graph could hold
+    it."""
     n = y.shape[0]
     max_bytes = SCAN_CHUNK_BYTES.get(y.device.type, 1 << 30)
     step = max(1, max_bytes // (n * n * y.element_size()))
@@ -240,11 +245,11 @@ def profiled_loglik_batch(cov: Covariance, thetas, x, y, sigma_n: float,
     vals = []
     for lo in range(0, thetas.shape[0], step):
         L = cholesky(kb(thetas[lo:lo + step]))
-        alpha = torch.cholesky_solve(
-            y[None, :, None].expand(L.shape[0], n, 1), L)[..., 0]
+        z = torch.linalg.solve_triangular(
+            L, y[None, :, None].expand(L.shape[0], n, 1), upper=False)
         logdet = 2.0 * torch.sum(torch.log(torch.diagonal(
             L, dim1=-2, dim2=-1)), dim=-1)
-        s2 = (alpha @ y) / n
+        s2 = torch.sum(z[..., 0] ** 2, dim=-1) / n
         vals.append(-0.5 * n * (LOG2PI + 1.0 + torch.log(s2))
                     - 0.5 * logdet)
     return torch.cat(vals)

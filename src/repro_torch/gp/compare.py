@@ -12,8 +12,11 @@ evaluates candidate kernels on one data set and returns the
     launch per CG or Lanczos iteration, on (n, d) grids the unfused
     Kronecker cycle on ``torch.fft``), and the Laplace Hessians of every
     model's modes come from 2 m_max batched gradient evaluations;
-  * sequential (``batch="off"``, not batchable, or any spec on the dense
-    backend): one bound session per spec, bind -> fit -> log_evidence.
+  * sequential (``batch="off"``, not batchable, any spec on the dense
+    backend, or ``run_nested``): one bound session per spec, bind -> fit
+    -> log_evidence, and with ``run_nested`` the nested-sampling baseline
+    (:mod:`repro_torch.core.nested`) from the fourth key of each model's
+    split.
 """
 
 from __future__ import annotations
@@ -23,7 +26,6 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-from .. import _pending
 from .. import random as rnd
 from .._device import as_tensor, resolve_device
 from ..core import hyperlik as hl
@@ -83,7 +85,9 @@ def compare(specs: Sequence[Union[GPSpec, str]], x, y, key=None,
 
     ``device=None`` means the card.  ``batch``: "auto" batches when
     eligible, "on" forces it (raising if the bank cannot run batched),
-    "off" runs the sequential path.
+    "off" runs the sequential path.  ``run_nested`` adds the
+    nested-sampling baseline (``n_live`` live points, at most
+    ``nested_max_iter`` iterations), always sequential.
     """
     if key is None:
         key = rnd.key(0)
@@ -93,13 +97,15 @@ def compare(specs: Sequence[Union[GPSpec, str]], x, y, key=None,
     if batch not in ("auto", "on", "off"):
         raise ValueError(f"unknown batch mode {batch!r}; choose "
                          f"'auto', 'on' or 'off'")
-    if run_nested:
-        raise _pending.pending("the nested-sampling baseline",
-                               _pending.NESTED)
     n = int(len(y))
     backend_ok = all(s.solver.resolve_backend(n) == "iterative"
                      for s in specs)
     eligible = batchable(specs, x) and backend_ok
+    if batch == "on" and run_nested:
+        raise ValueError(
+            "batch='on' is incompatible with run_nested=True: the "
+            "nested-sampling baseline is never batched — use batch='auto' "
+            "or 'off' when requesting it")
     if batch == "on" and not eligible:
         raise ValueError(
             "batch='on' but the candidate bank cannot run batched: needs "
@@ -108,16 +114,20 @@ def compare(specs: Sequence[Union[GPSpec, str]], x, y, key=None,
             "no explicit operator override, precond None|'circulant'|"
             "'pivchol'|'auto' and inputs classifying 'exact'/'near' "
             "(data.grid.classify_grid)")
-    if batch != "off" and eligible:
+    if batch != "off" and eligible and not run_nested:
         return _compare_batched(specs, x, y, key, device=device, dtype=dtype)
-    return _compare_sequential(specs, x, y, key, device=device, dtype=dtype)
+    return _compare_sequential(specs, x, y, key, run_nested=run_nested,
+                               n_live=n_live,
+                               nested_max_iter=nested_max_iter,
+                               device=device, dtype=dtype)
 
 
-def _compare_sequential(specs, x, y, key, device=None,
+def _compare_sequential(specs, x, y, key, run_nested=False, n_live=400,
+                        nested_max_iter=20000, device=None,
                         dtype=torch.float64) -> list[ModelReport]:
     reports = []
     for spec in specs:
-        key, kt, kl, _ = rnd.split(key, 4)
+        key, kt, kl, kn = rnd.split(key, 4)
         gp = GP.bind(spec, x, y, device=device, dtype=dtype).fit(kt)
         tr = gp.result
         n_evals = int(tr.n_evals)
@@ -132,7 +142,7 @@ def _compare_sequential(specs, x, y, key, device=None,
             log_z = float(lap.log_z)
             n_modes = 1
             n_evals += 1
-        reports.append(ModelReport(
+        rep = ModelReport(
             name=spec.name,
             theta_hat=tr.theta_hat,
             sigma_f_hat=float(tr.sigma_f_hat),
@@ -141,7 +151,14 @@ def _compare_sequential(specs, x, y, key, device=None,
             errors=lap.errors if lap is not None else torch.zeros(0),
             n_evals_train=n_evals,
             n_modes=n_modes,
-        ))
+        )
+        if run_nested:
+            ns = gp.log_evidence(method="nested", key=kn, n_live=n_live,
+                                 max_iter=nested_max_iter)
+            rep.log_z_nested = float(ns.log_z)
+            rep.log_z_nested_err = float(ns.log_z_err)
+            rep.n_evals_nested = int(ns.n_evals)
+        reports.append(rep)
     return reports
 
 

@@ -33,6 +33,7 @@ from .. import random as rnd
 from .._device import as_tensor, resolve_device
 from ..core import engine as eng
 from ..core import laplace as _laplace
+from ..core import nested as _nested
 from ..core import predict as _predict
 from ..core import stochastic as _stochastic
 from ..core import train as _train
@@ -188,22 +189,30 @@ class GP:
 
     def log_evidence(self, method: str = "laplace", key=None, theta=None,
                      multimodal: Optional[bool] = None,
-                     jeffreys_norm: float = 1.0):
-        """Laplace hyperevidence ln Z (eq. 2.13).
+                     jeffreys_norm: float = 1.0, **nested_kw):
+        """Hyperevidence ln Z (eq. 2.13 Laplace, or the nested baseline).
 
-        At an explicit ``theta``: the single-mode estimate.  Otherwise the
-        session must be fitted, and ``multimodal`` (default: the spec
-        policy) sums the evidence over the distinct restart peaks.
+        method="laplace": at an explicit ``theta`` the single-mode
+        estimate; otherwise the session must be fitted, and ``multimodal``
+        (default: the spec policy) sums the evidence over the distinct
+        restart peaks.  method="nested": the MULTINEST-family numerical
+        baseline (:mod:`repro_torch.core.nested`) on the bound backend;
+        ``nested_kw`` forwards n_live / n_chains / n_steps / max_iter.
         """
-        if method == "nested":
-            raise _pending.pending("the nested-sampling evidence",
-                                   _pending.NESTED)
-        if method != "laplace":
-            raise ValueError(f"unknown evidence method {method!r}; choose "
-                             f"'laplace' or 'nested'")
         pol = self.spec.solver
         sigma_n = self.spec.noise.sigma_n
         key = _as_key(key)
+        if method == "nested":
+            if key is None:
+                raise ValueError("log_evidence(method='nested') needs key=")
+            return _nested._evidence_nested_impl(
+                key, self.cov, self.x, self.y, sigma_n, self.box,
+                jeffreys_norm=jeffreys_norm, jitter=self.jitter,
+                backend=self.backend, solver_opts=pol.opts, op=self.op,
+                **nested_kw)
+        if method != "laplace":
+            raise ValueError(f"unknown evidence method {method!r}; choose "
+                             f"'laplace' or 'nested'")
         common = dict(jeffreys_norm=jeffreys_norm, jitter=self.jitter,
                       backend=self.backend, key=key, solver_opts=pol.opts,
                       op=self.op)

@@ -37,7 +37,9 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "large_scale_gp_torch.py",
     ROOT / "examples" / "quickstart_torch.py",
-    ROOT / "examples" / "tidal_analysis_torch.py"]
+    ROOT / "examples" / "tidal_analysis_torch.py",
+    ROOT / "scripts" / "table1_torch.py",
+    ROOT / "scripts" / "speedup_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -268,9 +270,36 @@ def test_dense_lifted_branches_answer(what):
         assert draws.shape == (2, 5) and torch.isfinite(draws).all()
 
 
+@pytest.mark.parametrize("what", ["nested_evidence", "compare_run_nested"])
+def test_nested_lifted_branches_answer(what):
+    """The branches that the nested slice lifted from
+    :func:`test_unported_branches_raise_not_implemented` now answer: the
+    nested evidence of a session (and without key= the JAX package's
+    ValueError), and compare(run_nested=True) with its nested fields and
+    speed-up."""
+    x, y = _irregular(40)
+    kw = dict(n_live=8, n_chains=2, n_steps=1, max_iter=3)
+    if what == "nested_evidence":
+        gp = tgp.GP.bind(_spec(backend="dense"), x, y, device="cpu")
+        with pytest.raises(ValueError, match="needs key="):
+            gp.log_evidence(method="nested")
+        res = gp.log_evidence(method="nested", key=0, **kw)
+        assert res.n_iters == 3 and res.n_evals == 8 + 3 * 2
+        assert torch.isfinite(res.log_z) and torch.isfinite(res.log_z_err)
+    else:
+        reports = tgp.compare([_spec("k1", backend="dense"),
+                               _spec("k2", backend="dense")], x, y,
+                              run_nested=True, n_live=8, nested_max_iter=2,
+                              device="cpu")
+        for r in reports:
+            assert r.n_evals_nested == 8 + 2 * 8 * 16
+            assert np.isfinite(r.log_z_nested) and r.log_z_nested_err > 0
+            assert r.speedup == r.n_evals_nested / (r.n_evals_train + 1)
+
+
 @pytest.mark.parametrize("what", [
     "operator_lowrank", "precond_pivchol", "precond_rank",
-    "nested_evidence", "bank_pivchol", "bank_precond_rank", "gp_rebind"])
+    "bank_pivchol", "bank_precond_rank", "gp_rebind"])
 def test_unported_branches_raise_not_implemented(what):
     """Each branch that the port does not run raises NotImplementedError
     and names its queue-A slice."""
@@ -285,8 +314,6 @@ def test_unported_branches_raise_not_implemented(what):
         "precond_rank": lambda: tgp.GP.bind(
             _spec(precond_rank=8), x, y, device="cpu").log_likelihood(
                 [5.0, 2.0, 0.0]),
-        "nested_evidence": lambda: tgp.GP.bind(_spec(), x, y, device="cpu")
-        .log_evidence(method="nested"),
         "bank_pivchol": lambda: tgp.compare(
             [_spec("k1", precond="pivchol"), _spec("k2", precond="pivchol")],
             near, np.sin(near), batch="on", device="cpu"),
@@ -302,16 +329,14 @@ def test_unported_branches_raise_not_implemented(what):
         assert "the rest of slice S2" in str(err.value)
     if what == "gp_rebind":
         assert _pending.SERVE in str(err.value)
-    if what == "nested_evidence":
-        assert _pending.NESTED in str(err.value)
 
 
 def test_pending_names_only_slices_still_to_come():
     """The refusal constants name queue-A slices that are not ported; the
     bank's constant went when the bank slice landed, the dense one with
-    the dense slice."""
+    the dense slice, the nested one with the nested slice."""
     names = {k for k in vars(_pending) if k.isupper()}
-    assert names == {"NESTED", "PIVCHOL", "SERVE", "LM"}
+    assert names == {"PIVCHOL", "SERVE", "LM"}
 
 
 @pytest.mark.parametrize("what", ["backend_stochastic", "auto_huge_n",

@@ -3,11 +3,12 @@ against the JAX package on the same numpy data.
 
 The random seam: the port draws all its randomness through
 ``repro_torch.random.rademacher`` / ``uniform`` / ``normal`` /
-``permutation`` from a key that records the JAX key tree.  The fixture
-below replaces all four by functions that replay the key's path with
-``jax.random``, so the port sees the JAX package's probes (Rademacher, and
-the N(0, P) probes of preconditioned SLQ), scan points, start points and
-the stochastic backend's epoch orders everywhere.
+``randint`` / ``permutation`` from a key that records the JAX key tree.
+The fixture below replaces all five by functions that replay the key's
+path with ``jax.random``, so the port sees the JAX package's probes
+(Rademacher, and the N(0, P) probes of preconditioned SLQ), scan points,
+start points, the stochastic backend's epoch orders and the nested
+sampler's chain starts and proposals everywhere.
 
 Two kinds of check:
   * stages on a JAX fit carried across (``repro_torch.gp.convert``): the
@@ -19,6 +20,7 @@ Two kinds of check:
 
 import copy
 import dataclasses
+import functools
 import math
 
 import jax
@@ -57,14 +59,50 @@ TIGHT_CG_TOL = 1e-12
 POLICY = dict(backend="iterative", n_starts=2, max_iters=3, scan_points=8)
 
 
+# id(key) -> (key, its JAX key, {n: the n keys of jax.random.split}); the
+# entry holds the key, so no other key can take its id while it is here
+_JAX_KEYS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_fn(n: int):
+    """jax.random.split(key, n) as a tuple of n keys, in one dispatch
+    (indexing the split array key by key costs more than the split)."""
+    return jax.jit(lambda k: tuple(jax.random.split(k, n)))
+
+
 def _jax_key(k: rnd.Key):
-    jk = jax.random.key(k.seed)
-    for step in k.path:
-        if step[0] == "split":
-            jk = jax.random.split(jk, step[1])[step[2]]
+    """The JAX key on ``k``'s path.  Memoised from the parent key: a key
+    whose parent was replayed costs one split or fold-in, so a replay
+    costs O(1) per split at any depth (the nested sampler's keys lie
+    thousands of splits deep).  A root key replays its whole path."""
+    chain = []
+    node = k
+    while node is not None and id(node) not in _JAX_KEYS:
+        chain.append(node)
+        node = node.parent
+    if node is None:
+        root = chain.pop()
+        jk = jax.random.key(root.seed)
+        for step in root.path:
+            if step[0] == "split":
+                jk = jax.random.split(jk, step[1])[step[2]]
+            else:
+                jk = jax.random.fold_in(jk, step[1])
+        node = root
+        _JAX_KEYS[id(root)] = (root, jk, {})
+    entry = _JAX_KEYS[id(node)]
+    for c in reversed(chain):
+        _, parent_key, splits = entry
+        if c.step[0] == "split":
+            n = c.step[1]
+            if n not in splits:
+                splits[n] = _split_fn(n)(parent_key)
+            jk = splits[n][c.step[2]]
         else:
-            jk = jax.random.fold_in(jk, step[1])
-    return jk
+            jk = jax.random.fold_in(parent_key, c.step[1])
+        entry = _JAX_KEYS[id(c)] = (c, jk, {})
+    return entry[1]
 
 
 @pytest.fixture
@@ -90,10 +128,19 @@ def jax_random(monkeypatch):
         p = np.asarray(jax.random.permutation(_jax_key(k), int(n)))
         return torch.tensor(p, device=device, dtype=torch.int64)
 
+    def randint(k, shape, lo, hi, *, device):
+        # the default integer dtype, as the JAX package draws (int64 under
+        # x64): another dtype draws other bits
+        r = np.asarray(jax.random.randint(_jax_key(k), tuple(shape), lo, hi))
+        return torch.tensor(r, device=device, dtype=torch.int64)
+
     monkeypatch.setattr(rnd, "rademacher", rademacher)
+    monkeypatch.setattr(rnd, "randint", randint)
     monkeypatch.setattr(rnd, "permutation", permutation)
     monkeypatch.setattr(rnd, "uniform", uniform)
     monkeypatch.setattr(rnd, "normal", normal)
+    yield
+    _JAX_KEYS.clear()
 
 
 def _data():
